@@ -18,6 +18,11 @@ def pytest_configure(config):
         "slow: long-running tests (multi-device subprocesses, big sims); "
         "deselect with -m 'not slow'",
     )
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device (the PyTorch/CUDA port's kernels); skips "
+        "without one — run with -m gpu on the card",
+    )
 
 
 def pytest_sessionfinish(session, exitstatus):
