@@ -3,12 +3,14 @@
 The reference relies on ``jax.tree``; the port's values are dicts of
 tensors (deformations), NamedTuples (``RegElement``), lists and tuples.
 These helpers map over exactly those containers and treat everything else
-(tensors, numbers) as a leaf.
+(tensors, numbers) as a leaf.  :func:`tree_flatten` / :func:`tree_unflatten`
+order dict entries by sorted key, as ``jax.tree.flatten`` does, so packed
+layouts (``kernels/_tiling.py``) match the reference column for column.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, List
+from typing import Any, Callable, List, Tuple
 
 import torch
 
@@ -50,3 +52,37 @@ def tree_stack(trees: List[Any]) -> Any:
 def tree_index(tree: Any, i) -> Any:
     """Index every leaf of ``tree`` along its leading axis."""
     return tree_map(lambda t: t[i], tree)
+
+
+def tree_flatten(tree: Any) -> Tuple[List[Any], Any]:
+    """``(leaves, treedef)`` with dict entries in sorted-key order (the
+    order ``jax.tree.flatten`` uses).  ``treedef`` is a hashable nested
+    tuple; equal structures give equal treedefs."""
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        parts = [tree_flatten(tree[k]) for k in keys]
+        return ([leaf for ls, _ in parts for leaf in ls],
+                ("dict", tuple(keys), tuple(d for _, d in parts)))
+    if isinstance(tree, (list, tuple)):
+        parts = [tree_flatten(t) for t in tree]
+        return ([leaf for ls, _ in parts for leaf in ls],
+                (type(tree), None, tuple(d for _, d in parts)))
+    return [tree], None
+
+
+def tree_unflatten(treedef: Any, leaves: List[Any]) -> Any:
+    """Inverse of :func:`tree_flatten`."""
+    it = iter(leaves)
+
+    def build(td):
+        if td is None:
+            return next(it)
+        kind, keys, children = td
+        vals = [build(c) for c in children]
+        if kind == "dict":
+            return dict(zip(keys, vals))
+        if hasattr(kind, "_fields"):
+            return kind(*vals)
+        return kind(vals)
+
+    return build(treedef)

@@ -78,6 +78,9 @@ def compose_batched(a: Deformation, b: Deformation) -> Deformation:
 # declared identity makes it a monoid (padding / ``where=`` mask lifting).
 compose_batched.op_batchable = True
 compose_batched.op_identity = identity_deformation
+# The scan kernels' table entry for it (kernels/op_table.py): packed as
+# [angle, shift0, shift1], the CUDA kernels compute the same function.
+compose_batched.kernel_op = "rigid_compose"
 
 
 def inverse(d: Deformation) -> Deformation:

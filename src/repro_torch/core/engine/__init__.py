@@ -4,8 +4,9 @@ compiler, pluggable backends, cost-model dispatch.
   circuits.py   prefix-circuit IR (rounds of combine/cross/zero entries)
   plan.py       ``lower``: circuit → :class:`ExecutionPlan`, LRU-cached
   backends.py   registry of plan-consuming executors (vector / element /
-                blocked / worksteal, + hierarchical from hierarchical.py;
-                the backends of later slices are registered as stubs)
+                blocked / worksteal, + hierarchical from hierarchical.py and
+                decoupled from decoupled_backend.py; the backends of later
+                slices are registered as stubs)
   cost.py       operator cost model + dispatcher
 
 Public entry point::
@@ -30,6 +31,7 @@ from typing import Any, Callable, List, Optional, Sequence
 
 import torch
 
+from repro_torch.kernels.op_table import kernel_op_for, kernel_op_of
 from repro_torch.runtime.scheduler import get_default_pool
 
 from .._tree import tensor_leaves, tree_map
@@ -66,7 +68,8 @@ from .telemetry import (
     release_telemetry,
 )
 
-# Registers the "hierarchical" backend on import.
+# Register the "hierarchical" and "decoupled" backends on import.
+from . import decoupled_backend as _decoupled  # noqa: F401
 from . import hierarchical as _hierarchical  # noqa: F401
 
 Op = Callable[[Any, Any], Any]
@@ -121,6 +124,19 @@ def _accel_available(xs) -> bool:
     return dev is not None and dev.type == "cuda"
 
 
+def _accel_for(op, xs, element_domain: bool) -> bool:
+    """The dispatcher's ``accel``: the tensors lie on CUDA *and* the op has
+    a kernel form (``kernels/op_table.py``) — for an array scan, one that
+    fits the data's packed rows.  Without one the card is dispatched like a
+    host without an accelerator, so no kernel path is picked that would
+    have to raise."""
+    if not _accel_available(xs):
+        return False
+    if element_domain:
+        return kernel_op_of(op) is not None
+    return kernel_op_for(op, xs) is not None
+
+
 def cache_stats():
     """Hit/miss/size counters of the plan and backend-lowering caches."""
     return {"plan": plan_cache.stats(), "lowered": lowered_cache.stats()}
@@ -168,6 +184,7 @@ def scan(
     workers: Optional[int] = None,
     seed: Any = None,
     device_phase1: Optional[bool] = None,
+    use_pallas: Optional[bool] = None,
     pool=None,
     devices: Optional[int] = None,
 ):
@@ -197,7 +214,11 @@ def scan(
 
     Backend-specific options: ``num_blocks``/``strategy`` (blocked),
     ``num_threads``/``stealing`` (worksteal), ``num_segments``/
-    ``num_threads``/``cross_steal``/``element_costs`` (hierarchical).
+    ``num_threads``/``cross_steal``/``element_costs`` (hierarchical),
+    ``num_blocks`` (decoupled: the tile count).  ``use_pallas``
+    (hierarchical array and device phase-1 paths): run the local phases
+    through the ``tile_local_scan``/``tile_apply`` kernels; default: when
+    the tensors lie on CUDA and the op has a kernel form.
     """
     element_domain = isinstance(xs, list)
     if (
@@ -219,7 +240,8 @@ def scan(
                 num_threads=num_threads, num_segments=num_segments,
                 strategy=strategy, stealing=stealing, cross_steal=cross_steal,
                 element_costs=element_costs, workers=workers, seed=seed,
-                device_phase1=device_phase1, pool=pool, devices=devices,
+                device_phase1=device_phase1, use_pallas=use_pallas,
+                pool=pool, devices=devices,
             )
     return _scan_impl(
         op, xs, element_domain,
@@ -227,8 +249,8 @@ def scan(
         measure=measure, num_blocks=num_blocks, num_threads=num_threads,
         num_segments=num_segments, strategy=strategy, stealing=stealing,
         cross_steal=cross_steal, element_costs=element_costs,
-        workers=workers, seed=seed, device_phase1=device_phase1, pool=pool,
-        devices=devices,
+        workers=workers, seed=seed, device_phase1=device_phase1,
+        use_pallas=use_pallas, pool=pool, devices=devices,
     )
 
 
@@ -262,6 +284,7 @@ def _scan_impl(
     workers,
     seed,
     device_phase1,
+    use_pallas,
     pool,
     devices,
 ):
@@ -277,6 +300,8 @@ def _scan_impl(
             return [op(seed, xs[0])]
         if seed is None:
             return list(xs) if element_domain else xs
+        # array-domain seeded scan (decoupled backend): the single element
+        # still has to fold the seed in — fall through to the backend.
 
     # --- dispatch
     if element_domain and workers is None:
@@ -302,7 +327,7 @@ def _scan_impl(
                      op_imbalance=op_imbalance_from(op),
                      pool_occupancy=occupancy,
                      op_batchable=op_batchable_from(op),
-                     accel=accel,
+                     accel=_accel_for(op, xs, element_domain),
                      devices=devices)
         backend = d.backend
         if where is not None and backend in ("blocked", "worksteal",
@@ -332,9 +357,15 @@ def _scan_impl(
     strategy = strategy or "reduce_then_scan"
     fn = get_backend(backend)
 
-    # --- backends of later slices (stubs that raise), called as the
-    # reference calls them.
-    if backend in ("decoupled", "sharded"):
+    # --- single-pass decoupled lookback: no plan, no global phase.
+    if backend == "decoupled":
+        ys, _ = fn(op, None, xs, num_blocks=num_blocks, seed=seed,
+                   where=where)
+        return ys
+
+    # --- sharded multi-device execution (a later slice: the stub raises),
+    # called as the reference calls it.
+    if backend == "sharded":
         ys, _ = fn(op, None, xs, num_blocks=num_blocks, seed=seed,
                    where=where, devices=devices)
         return ys
@@ -377,8 +408,8 @@ def _scan_impl(
         plan = get_plan(alg, s) if s > 1 else None
         ys, _ = fn(op, plan, xs, num_segments=s, num_threads=t,
                    stealing=stealing, cross_steal=cross_steal,
-                   element_costs=element_costs, seed=seed,
-                   device_phase1=device_phase1, pool=pool)
+                   element_costs=element_costs, use_pallas=use_pallas,
+                   seed=seed, device_phase1=device_phase1, pool=pool)
         return ys
     if backend == "pallas" and num_blocks is not None and num_blocks > 1:
         plan = get_plan("ladner_fischer" if algorithm == "blelloch"

@@ -13,10 +13,12 @@ zeroing), else None.  Registered backends:
   worksteal  threaded reduce-then-scan with Algorithm-1 stealing; the plan
              drives the phase-2 scan over thread partials (paper §4.3)
   hierarchical  two-level reduce-then-scan (``engine/hierarchical.py``)
+  decoupled  single-pass decoupled-lookback scan
+             (``engine/decoupled_backend.py``)
 
 Not ported yet, registered as stubs that raise ``NotImplementedError``
 naming their ``ROADMAP.md`` item, so that a dispatch to one is loud:
-``simulate``, ``collective``, ``pallas``, ``decoupled`` and ``sharded``.
+``simulate``, ``collective``, ``pallas`` and ``sharded``.
 """
 
 from __future__ import annotations
@@ -194,8 +196,6 @@ def exec_worksteal(
 
 #: Backend -> the ``ROADMAP.md`` item (Queue 1) that ports it.
 UNPORTED = {
-    "decoupled": "Queue 1 item 1 (refine=False on CUDA: decoupled backend "
-                 "+ lookback_scan kernel)",
     "pallas": "Queue 1 item 3 (pallas backend + fused_round kernel)",
     "simulate": "Queue 1 item 4 (simulator)",
     "collective": "Queue 1 item 4 (distributed / sharded execution)",

@@ -8,16 +8,20 @@ totals (plan-driven, width S), and a final local-apply pass folds each
 segment's exclusive prefix back into its elements.  Work stays ~3N while the
 critical path collapses to O(N/(S·T) + log S).
 
-Ported: the **element** domain (Python list, expensive opaque operator — the
-registration operator), with cross-segment stealing through shared boundary
-``_Gap``s, ahead-of-time segment sizing from cost history, and
-:class:`HierStats`.  Both phases execute on the injected
-:mod:`repro_torch.runtime.scheduler` pool — no threads are spawned here.
+Two domains, same phase structure:
 
-Not ported yet (``ROADMAP.md`` Queue 1 item 2): the batched device phase 1
-(``_exec_hier_device``) and the array domain (``_exec_hier_array``, which
-reaches the ``tile_local_scan``/``tile_apply`` kernels).  Both raise
-``NotImplementedError``.
+* **element** (Python list, expensive opaque operator — the registration
+  operator), with cross-segment stealing through shared boundary
+  ``_Gap``s, ahead-of-time segment sizing from cost history, and
+  :class:`HierStats`.  Both phases execute on the injected
+  :mod:`repro_torch.runtime.scheduler` pool — no threads are spawned here.
+  A batchable operator can instead run the whole scan as batched device
+  work (``device_phase1``, :func:`_exec_hier_device`).
+* **array** (tree of tensors, vectorizable operator): phases 1/3 are
+  batched segment scans/applies, routed through the ``tile_local_scan`` /
+  ``tile_apply`` kernels (``kernels/tile_scan.py``) when the input is a
+  single float leaf and the op has a kernel form (``kernels/op_table.py``);
+  by default that is when the tensors lie on CUDA.
 """
 
 from __future__ import annotations
@@ -27,9 +31,14 @@ import functools
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import torch
+
+from repro_torch.kernels._tiling import pack_leaves, packed_op, unpack_leaves
+from repro_torch.kernels.op_table import kernel_op_for
 from repro_torch.runtime.scheduler import get_default_pool
 
-from .backends import exec_element, not_ported, register_backend
+from .._tree import tensor_leaves, tree_index, tree_map
+from .backends import exec_element, exec_vector, register_backend
 from .plan import ExecutionPlan, get_plan
 
 Op = Callable[[Any, Any], Any]
@@ -290,18 +299,152 @@ def _exec_hier_element(
 
 
 # ---------------------------------------------------------------------------
-# not ported yet: batched device phase 1 and the array domain
+# element domain, device phase 1 — batched device work instead of threads
 # ---------------------------------------------------------------------------
 
-_NOT_PORTED_ITEM = ("Queue 1 item 2 (hierarchical device and array paths "
-                    "with tile_local_scan / tile_apply)")
-_exec_hier_device = not_ported(
-    "hierarchical's batched device phase 1 (_exec_hier_device)",
-    _NOT_PORTED_ITEM,
-)
-_exec_hier_array = not_ported(
-    "hierarchical's array domain (_exec_hier_array)", _NOT_PORTED_ITEM,
-)
+
+def _exec_hier_device(
+    op: Op,
+    xs: Sequence[Any],
+    stacked,
+    *,
+    num_segments: int,
+    seed: Any,
+    use_pallas: Optional[bool],
+) -> Tuple[list, Any]:
+    """Device-resident phase 1 for batchable operators.
+
+    The element list is stacked to the array domain, the whole two-level
+    reduce-then-scan runs as batched device work
+    (:func:`_exec_hier_array`), an optional seed folds in with **one**
+    batched operator application, and the result is unstacked back to a
+    list.  No WorkerPool tasks: for a cheap batchable operator the
+    per-task Python dispatch is the phase-1 critical path, not the
+    operator.
+    """
+    from .cost import _largest_divisor_at_most
+
+    global last_stats
+    n = len(xs)
+    phase: Dict[str, float] = {}
+
+    t0 = time.perf_counter()
+    # Stacking happened in the caller (it doubles as the eligibility
+    # check); the array path needs S | N.
+    s = _largest_divisor_at_most(n, max(1, num_segments))
+    plan = get_plan("ladner_fischer", s) if s > 1 else None
+    phase["stack"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    ys_arr, _total = _exec_hier_array(
+        op, plan, stacked, num_segments=s, use_pallas=use_pallas,
+    )
+    if seed is not None:
+        seed_b = tree_map(
+            lambda sl, yl: torch.as_tensor(
+                sl, dtype=yl.dtype, device=yl.device
+            )[None].expand(yl.shape),
+            seed, ys_arr,
+        )
+        ys_arr = op(seed_b, ys_arr)
+    leaves = tensor_leaves(ys_arr)
+    if leaves and leaves[0].device.type == "cuda":
+        torch.cuda.synchronize(leaves[0].device)
+    phase["device"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    out = [tree_index(ys_arr, i) for i in range(n)]
+    total = tree_index(ys_arr, -1)
+    phase["unstack"] = time.perf_counter() - t0
+
+    last_stats = HierStats(
+        num_segments=s,
+        threads_per_segment=0,
+        segment_bounds=segment_bounds(n, s),
+        intervals=[],
+        steal_stats=[None] * s,
+        phase_seconds=phase,
+        total_ops=0,  # device-side applications are not individually timed
+        device_phase1=True,
+        phase2_rounds=(plan.num_rounds() + 1) if plan is not None else 0,
+    )
+    return out, total
+
+
+# ---------------------------------------------------------------------------
+# array domain — batched segment scans, or the tile kernels
+# ---------------------------------------------------------------------------
+
+
+def _pallas_eligible(xs) -> bool:
+    """One floating leaf: the data the tile kernels' path takes."""
+    leaves = tensor_leaves(xs)
+    return len(leaves) == 1 and leaves[0].is_floating_point()
+
+
+def _exec_hier_array(
+    op: Op,
+    plan: Optional[ExecutionPlan],
+    xs,
+    *,
+    num_segments: int,
+    use_pallas: Optional[bool],
+) -> Tuple[Any, Any]:
+    from ..scan import _local_inclusive_scan
+
+    n = tensor_leaves(xs)[0].shape[0]
+    s = num_segments
+    if n % s:
+        raise ValueError(
+            f"hierarchical array scan needs N divisible by num_segments, "
+            f"got N={n}, S={s}"
+        )
+    if plan is None or plan.n != s or plan.exclusive:
+        plan = get_plan("ladner_fischer", s) if s > 1 else None
+    if s == 1:
+        ys = _local_inclusive_scan(op, xs)
+        return ys, tree_index(ys, -1)
+
+    if use_pallas is None:
+        # Routing, decided before any launch: the kernels where the tensors
+        # lie on CUDA and the op has a kernel form.  An explicit True takes
+        # the tile functions on any device (CPU tensors run their plain
+        # versions; on CUDA an op without a kernel form raises there).
+        use_pallas = (tensor_leaves(xs)[0].device.type == "cuda"
+                      and kernel_op_for(op, xs) is not None)
+    if use_pallas and _pallas_eligible(xs):
+        # Tile kernels: per-tile scan, the small global phase over the tile
+        # totals, then the seed apply.
+        from repro_torch.kernels.tile_scan import tile_apply, tile_local_scan
+
+        x2, spec = pack_leaves(xs)
+        pop = packed_op(op, spec)
+        local, partials = tile_local_scan(pop, x2, s)
+        gscan, _ = exec_vector(pop, plan, partials)
+        seeds = torch.cat([partials[:1], gscan[:-1]], dim=0)
+        ys = unpack_leaves(tile_apply(pop, local, seeds), spec)
+        total = tree_index(unpack_leaves(gscan[-1:], spec), 0)
+        return ys, total
+
+    k = n // s
+    segs = tree_map(lambda t: t.reshape((s, k) + t.shape[1:]), xs)
+    local = _local_inclusive_scan(op, segs, axis=1)
+    partials = tree_map(lambda t: t[:, -1], local)
+    gscan, _ = exec_vector(op, plan, partials)
+    # Apply: segment i>0 folds in the inclusive global prefix of segments <i.
+    excl = tree_map(lambda t: t[:-1], gscan)
+    head = tree_map(lambda t: t[:1], local)
+    rest = tree_map(lambda t: t[1:], local)
+    upd = op(
+        tree_map(
+            lambda e, r: e.unsqueeze(1).expand((e.shape[0], k) + e.shape[1:]),
+            excl, rest,
+        ),
+        rest,
+    )
+    out = tree_map(lambda h, u: torch.cat([h, u], 0), head, upd)
+    ys = tree_map(lambda t: t.reshape((n,) + t.shape[2:]), out)
+    return ys, tree_index(gscan, -1)
 
 
 # ---------------------------------------------------------------------------
@@ -320,6 +463,7 @@ def exec_hierarchical(
     seed: Any = None,
     cross_steal: Optional[bool] = None,
     element_costs: Optional[Sequence[float]] = None,
+    use_pallas: Optional[bool] = None,
     device_phase1: Optional[bool] = None,
     pool=None,
     **_,
@@ -332,15 +476,26 @@ def exec_hierarchical(
     boundary gaps; default on where feasible); ``element_costs`` is an
     optional per-element cost prior for ahead-of-time segment sizing
     (otherwise read from the operator's telemetry, if it has any).
-    ``device_phase1`` (the batched device phase 1) and array inputs are not
-    ported yet and raise ``NotImplementedError``.  ``pool`` is the
+    ``device_phase1`` runs element-domain phase 1 as batched device work
+    instead of pool threads (operators advertising ``op_batchable``; falls
+    back to threads when the elements don't stack).  ``use_pallas``: run
+    the array path's local phases through the tile kernels (default: the
+    tensors lie on CUDA and the op has a kernel form).  ``pool`` is the
     scheduler segment reduces and interval applies run on (element domain;
     the process-wide shared pool by default).
     """
     s = num_segments if num_segments is not None else (plan.n if plan else 1)
     if isinstance(xs, list):
         if device_phase1:
-            return _exec_hier_device(op, xs, num_segments=s, seed=seed)
+            from .decoupled_backend import stack_elements
+
+            stacked = stack_elements(xs)
+            if stacked is not None:
+                return _exec_hier_device(
+                    op, xs, stacked,
+                    num_segments=s, seed=seed, use_pallas=use_pallas,
+                )
+            # Elements don't stack (opaque payloads): threads still work.
         return _exec_hier_element(
             op,
             plan,
@@ -357,7 +512,9 @@ def exec_hierarchical(
         raise NotImplementedError(
             "seeded hierarchical scan is element-domain only"
         )
-    return _exec_hier_array(op, plan, xs, num_segments=s)
+    return _exec_hier_array(
+        op, plan, xs, num_segments=s, use_pallas=use_pallas,
+    )
 
 
 register_backend("hierarchical", exec_hierarchical)

@@ -1,10 +1,12 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-Each kernel is one ``csrc/<name>.cu`` with a plain C interface.  At first
-use it is compiled by ``nvcc`` for ``sm_90a`` into a shared library under
+Each kernel library is one ``csrc/<name>.cu`` with a plain C interface
+(the scan kernels share ``csrc/scan_ops.cuh``).  At first use it is
+compiled by ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/torch_kernels/`` at the repository root and loaded with ``ctypes``.
-The library's file name carries a hash of the source and the flags, so an
-edited source rebuilds and a stale library is never loaded.  Nothing here
+The library's file name carries a hash of the source, the shared headers
+and the flags, so an edited source rebuilds and a stale library is never
+loaded.  Nothing here
 runs at import: ``import repro_torch`` never needs ``nvcc``.
 
 Every kernel wrapper owns a :class:`LaunchCounter` registered here, which it
@@ -93,9 +95,12 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> str:
     """Where kernel ``name``'s library for the current source lands."""
-    src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    # The source and every shared header it may include.
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

@@ -205,13 +205,27 @@ def test_unported_backends_raise(name):
         scan(tdef.compose_batched, xs, backend=name, num_blocks=2)
 
 
-def test_hierarchical_unported_paths_raise():
-    elems = [_t(e) for e in _elements(8, 2)]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        scan(tdef.compose_batched, elems, backend="hierarchical", device_phase1=True)
-    stack = {k: torch.stack([e[k] for e in elems]) for k in ("angle", "shift")}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        scan(tdef.compose_batched, stack, backend="hierarchical", num_segments=2)
+# ------------------------- hierarchical device phase 1 and array domain
+
+@pytest.mark.parametrize("path", ["device_phase1", "array"])
+def test_hierarchical_device_and_array_paths_match_reference(path):
+    elems = _elements(8, 2)
+    if path == "device_phase1":
+        want = ref_scan(rdef.compose_batched, [_j(e) for e in elems],
+                        backend="hierarchical", device_phase1=True,
+                        num_segments=2)
+        got = scan(tdef.compose_batched, [_t(e) for e in elems],
+                   backend="hierarchical", device_phase1=True, num_segments=2)
+        assert hierarchical.last_stats.device_phase1
+        _assert_prefixes(got, want)
+        return
+    stack = {k: np.stack([e[k] for e in elems]) for k in ("angle", "shift")}
+    want = ref_scan(rdef.compose_batched, _j(stack), backend="hierarchical",
+                    num_segments=2)
+    got = scan(tdef.compose_batched, _t(stack), backend="hierarchical",
+               num_segments=2)
+    for k in ("angle", "shift"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), atol=ATOL)
 
 
 # ----------------------------------------------- work stealing protocol

@@ -1,11 +1,17 @@
-"""The hierarchical backend's element domain in the port: the reference's
-element-domain, dispatch and telemetry tests (tests/test_hierarchical.py),
-run against ``repro_torch.core.engine``.  Its array domain and the batched
-device phase 1 are not ported yet (they raise; test_torch_engine.py)."""
+"""The hierarchical backend in the port: the reference's element-domain,
+dispatch and telemetry tests (tests/test_hierarchical.py), run against
+``repro_torch.core.engine``; and its array domain, batched device phase 1
+and tile kernels (plain versions, ``repro_torch.kernels.tile_scan``) held
+against the reference package on the same numpy inputs — the reference's
+tile kernels in interpret mode."""
 
 import time
 
+import jax
+import jax.numpy as jnp
+import numpy as np
 import pytest
+import torch
 
 from repro_torch.core.circuits import get_circuit
 from repro_torch.core.engine import (
@@ -309,3 +315,201 @@ def test_scan_consults_operator_telemetry():
     # reduce-then-scan work ~2N (< 100), below the flat Ladner–Fischer
     # circuit's ~129 applications at N=32 — proves the cost hint was used.
     assert len(calls) < 100
+
+
+# ------------------------------------------- array domain vs the reference
+
+from repro.core.engine import scan as ref_scan  # noqa: E402
+import repro.core.deformation as rdef  # noqa: E402
+import repro.kernels._tiling as rtiling  # noqa: E402
+import repro.kernels.tile_scan as rts  # noqa: E402
+import repro_torch.core.deformation as tdef  # noqa: E402
+import repro_torch.kernels._tiling as ttiling  # noqa: E402
+import repro_torch.kernels.tile_scan as tts  # noqa: E402
+from repro_torch.core.engine import DEVICE_PHASE1_MIN_N  # noqa: E402
+from repro_torch.core.engine import hierarchical as thier  # noqa: E402
+
+
+def _rigid_ops():
+    """compose_batched on packed [angle, s0, s1] rows, in both packages."""
+    d = {"angle": np.zeros(2, np.float32), "shift": np.zeros((2, 2), np.float32)}
+    _, tspec = ttiling.pack_leaves({k: torch.as_tensor(v) for k, v in d.items()})
+    _, rspec = rtiling.pack_leaves({k: jnp.asarray(v) for k, v in d.items()})
+    return (ttiling.packed_op(tdef.compose_batched, tspec),
+            rtiling.packed_op(rdef.compose_batched, rspec))
+
+
+def _rows(kind, n, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "add":
+        return rng.integers(-9, 10, (n, 2)).astype(np.float32)
+    x = rng.normal(size=(n, 3)).astype(np.float32)
+    x[:, 0] *= 0.05
+    return x
+
+
+def _ops(kind):
+    return (torch.add, jnp.add) if kind == "add" else _rigid_ops()
+
+
+def _close(kind, got, want):
+    if kind == "add":  # integer-valued: exact under any grouping
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    else:  # the reference's compose tolerance (tests/test_decoupled.py)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["add", "rigid"])
+@pytest.mark.parametrize("n,t", [(64, 4), (60, 6), (16, 16), (12, 1)])
+def test_tile_local_scan_plain_matches_reference_kernel(kind, n, t):
+    x = _rows(kind, n, seed=n + t)
+    top, rop = _ops(kind)
+    local, partials = tts.tile_local_scan(top, torch.as_tensor(x), t)
+    wlocal, wpartials = rts.tile_local_scan(rop, jnp.asarray(x), t,
+                                            interpret=True)
+    assert local.shape == wlocal.shape and partials.shape == wpartials.shape
+    _close(kind, local, wlocal)
+    _close(kind, partials, wpartials)
+
+
+@pytest.mark.parametrize("kind", ["add", "rigid"])
+@pytest.mark.parametrize("t,k", [(4, 16), (3, 5), (1, 8)])
+def test_tile_apply_plain_matches_reference_kernel(kind, t, k):
+    local = _rows(kind, t * k, seed=t * k).reshape(t, k, -1)
+    seeds = _rows(kind, t, seed=t + 100)
+    top, rop = _ops(kind)
+    got = tts.tile_apply(top, torch.as_tensor(local), torch.as_tensor(seeds))
+    want = rts.tile_apply(rop, jnp.asarray(local), jnp.asarray(seeds),
+                          interpret=True)
+    assert got.shape == want.shape
+    _close(kind, got, want)
+    np.testing.assert_array_equal(got[:k].numpy(), local[0])  # tile 0 passes
+
+
+@pytest.mark.parametrize("s", [2, 4, 8])
+@pytest.mark.parametrize("use_pallas", [None, True])
+def test_array_matches_reference(s, use_pallas):
+    n = 64
+    x = np.arange(1.0, n + 1.0, dtype=np.float32)
+    want = ref_scan(jnp.add, jnp.asarray(x), backend="hierarchical",
+                    num_segments=s, use_pallas=bool(use_pallas),
+                    interpret=True)
+    got = scan(torch.add, torch.as_tensor(x), backend="hierarchical",
+               num_segments=s, use_pallas=use_pallas)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+    np.testing.assert_allclose(got.numpy(), np.cumsum(x), rtol=1e-6)
+
+
+def test_array_pytree_matches_reference():
+    n = 16
+    a, b = np.arange(float(n), dtype=np.float32), np.ones((n, 2), np.float32)
+    want = ref_scan(lambda u, v: jax.tree.map(jnp.add, u, v),
+                    {"a": jnp.asarray(a), "b": jnp.asarray(b)},
+                    backend="hierarchical", num_segments=4)
+    got = scan(lambda u, v: {k: u[k] + v[k] for k in u},
+               {"a": torch.as_tensor(a), "b": torch.as_tensor(b)},
+               backend="hierarchical", num_segments=4)
+    for k in ("a", "b"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=1e-6)
+    np.testing.assert_allclose(got["b"][-1].numpy(), [n, n])
+
+
+@pytest.mark.parametrize("s", [2, 4])
+def test_array_compose_matches_reference(s):
+    rng = np.random.default_rng(s)
+    d = {"angle": (rng.normal(size=24) * 0.05).astype(np.float32),
+         "shift": rng.normal(size=(24, 2)).astype(np.float32)}
+    want = ref_scan(rdef.compose_batched,
+                    {k: jnp.asarray(v) for k, v in d.items()},
+                    backend="hierarchical", num_segments=s)
+    got = scan(tdef.compose_batched,
+               {k: torch.as_tensor(v) for k, v in d.items()},
+               backend="hierarchical", num_segments=s)
+    for k in ("angle", "shift"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=1e-5, atol=1e-6)
+
+
+def test_array_indivisible_segments_raise():
+    with pytest.raises(ValueError, match="divide"):
+        scan(torch.add, torch.arange(10.0), backend="hierarchical",
+             num_segments=4)
+    with pytest.raises(NotImplementedError, match="element-domain"):
+        thier.exec_hierarchical(torch.add, None, torch.arange(8.0),
+                                num_segments=2, seed=torch.tensor(1.0))
+
+
+def _batchable_add():
+    op = lambda a, b: a + b
+    op.op_batchable = True
+    op.op_identity = lambda: torch.zeros((4,))
+    return op
+
+
+@pytest.mark.parametrize("use_pallas", [None, True])
+@pytest.mark.parametrize("seeded", [False, True])
+def test_device_phase1_matches_reference(use_pallas, seeded):
+    rop = lambda a, b: a + b
+    rop.op_batchable = True
+    rop.op_identity = lambda: jnp.zeros((4,))
+    top = _batchable_add()
+    top.kernel_op = "add"
+    vals = [np.full((4,), float(i + 1), np.float32) for i in range(96)]
+    seed = np.full((4,), 100.0, np.float32)
+    want = ref_scan(rop, [jnp.asarray(v) for v in vals],
+                    backend="hierarchical", device_phase1=True,
+                    num_segments=6,
+                    seed=jnp.asarray(seed) if seeded else None)
+    got = scan(top, [torch.as_tensor(v) for v in vals],
+               backend="hierarchical", device_phase1=True, num_segments=6,
+               use_pallas=use_pallas,
+               seed=torch.as_tensor(seed) if seeded else None)
+    st = thier.last_stats
+    assert st.device_phase1 and st.threads_per_segment == 0
+    assert st.num_segments == 6 and set(st.phase_seconds) == {
+        "stack", "device", "unstack"}
+    assert isinstance(got, list) and len(got) == 96
+    np.testing.assert_allclose(np.stack([g.numpy() for g in got]),
+                               np.stack([np.asarray(w) for w in want]),
+                               rtol=1e-6)
+    want_sum = np.cumsum(np.arange(1.0, 97.0)) + (100.0 if seeded else 0.0)
+    np.testing.assert_allclose([float(g[0]) for g in got], want_sum,
+                               rtol=1e-6)
+
+
+def test_device_phase1_compose_matches_reference():
+    rng = np.random.default_rng(21)
+    elems = [{"angle": np.float32(rng.normal() * 0.05),
+              "shift": rng.normal(size=2).astype(np.float32)}
+             for _ in range(30)]
+    want = ref_scan(rdef.compose_batched,
+                    [{k: jnp.asarray(v) for k, v in e.items()} for e in elems],
+                    backend="hierarchical", device_phase1=True,
+                    num_segments=4)
+    got = scan(tdef.compose_batched,
+               [{k: torch.as_tensor(v) for k, v in e.items()} for e in elems],
+               backend="hierarchical", device_phase1=True, num_segments=4)
+    assert thier.last_stats.device_phase1
+    for g, w in zip(got, want):
+        for k in ("angle", "shift"):
+            np.testing.assert_allclose(g[k].numpy(), np.asarray(w[k]),
+                                       rtol=1e-5, atol=1e-6)
+
+
+def test_device_phase1_unstackable_falls_back_to_threads():
+    xs = [(i % 7 + 1, i) for i in range(16)]
+    ref, _ = python_exec(_affine_op, get_circuit("ladner_fischer", 16), xs)
+    ys = scan(_affine_op, list(xs), backend="hierarchical",
+              device_phase1=True, num_segments=2, num_threads=2)
+    assert ys == ref and not thier.last_stats.device_phase1
+
+
+def test_dispatch_runs_device_phase1_for_cheap_batchable_ops():
+    n = max(256, DEVICE_PHASE1_MIN_N)
+    xs = [torch.full((4,), float(i + 1)) for i in range(n)]
+    ys = scan(_batchable_add(), xs, op_cost=1e-5)
+    assert thier.last_stats.device_phase1
+    np.testing.assert_allclose([float(y[0]) for y in ys],
+                               np.cumsum(np.arange(1.0, n + 1.0)), rtol=1e-6)

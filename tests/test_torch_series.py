@@ -213,12 +213,13 @@ def _chip_smoke(*args):
 
 
 def test_chip_smoke_cpu_rehearsal_runs_the_flow():
-    """The chip script's series phases on the CPU (plain kernels): it prints
-    its series lines, no result line, and exits 3."""
+    """The chip script's series, compose and engine phases on the CPU
+    (plain kernels): it prints their lines, no result line, and exits 3."""
     out = _chip_smoke("--cpu-rehearsal")
     assert out.returncode == 3, out.stderr
     lines = out.stdout.splitlines()
-    assert [ln.split()[0] for ln in lines] == ["series", "series_hier"]
+    assert [ln.split()[0] for ln in lines] == [
+        "series", "series_hier", "series_compose", "scan_engine"]
     assert '"ok"' not in out.stdout
 
 
