@@ -21,12 +21,15 @@ kernels' launch counts zeroed just before it and read just after:
   dispatch — ``decoupled`` add at n = 2^24 (plain, seeded, masked) and rigid
   composition of 4096 deformations (``lookback_scan``), ``hierarchical`` add
   at 2^24 and an element list's device phase 1 (``tile_local_scan`` +
-  ``tile_apply``).
+  ``tile_apply``); and ``backend="pallas"``: rounds mode at n = 2^16
+  (Ladner-Fischer plain and masked, Blelloch; one ``fused_round`` launch a
+  non-empty round) and tiles mode at 2^24 (add over 16 tiles, max over
+  4096; one ``tile_local_scan`` and one ``tile_apply`` launch).
 
 Output, one line each: ``env``, ``build``, ``kernel warp_ncc``,
 ``kernel lookback_scan``, ``kernel tile_local_scan``, ``kernel tile_apply``,
-``series``, ``series_hier``, ``series_compose``, ``scan_engine``,
-``kernels`` (JSON), the card's name and power limit, and last
+``kernel fused_round``, ``series``, ``series_hier``, ``series_compose``,
+``scan_engine``, ``kernels`` (JSON), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the script
 exits non-zero; without a CUDA device it exits 2 and prints no result.
 
@@ -73,6 +76,13 @@ SHIFT_ERR_MAX = 0.35  # tests/test_hierarchical.py::test_register_series_smoke
 SCAN_N = 1 << 24
 SERIES_LEN = 4096
 TILE_COUNTS = (16, 128)   # the engine's segment count, and a larger one
+# The pallas backend's rounds mode: the paper's circuits as plan rounds at
+# n = 2^16 (host plan compilation grows with n: 0.2-1.8 s a plan here), one
+# fused_round launch a round; its tiles mode at SCAN_N over these counts.
+ROUNDS_N = 1 << 16
+ROUND_CIRCUITS = ("sklansky", "brent_kung", "ladner_fischer",
+                  "dissemination", "blelloch")
+PALLAS_TILES = (16, 4096)
 # Rigid composition: rtol 1e-5, and an absolute tolerance of a few float32
 # ulps of the largest composed shift (tests/test_torch_gpu.py::_rigid_tol).
 RIGID_RTOL = 1e-5
@@ -111,6 +121,21 @@ def _time_ms(fn, reps: int = 50, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _graph_ms(fn, reps: int = 20) -> float:
+    """Device time of ``fn``'s launches, replayed from a CUDA graph: no
+    host work between launches, so a host-bound sequence of small kernels
+    shows what the card itself spends on it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return _time_ms(graph.replay, reps=reps)
 
 
 def check_warp_ncc(device, power_w: float) -> dict:
@@ -191,6 +216,20 @@ def _bound(nbytes: float, ops: float) -> dict:
 def _ints(n: int, d: int, device, seed: int) -> torch.Tensor:
     g = torch.Generator(device="cpu").manual_seed(seed)
     return torch.randint(-2, 3, (n, d), generator=g).float().to(device)
+
+
+def _floats(n: int, d: int, device, seed: int) -> torch.Tensor:
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return torch.randn((n, d), generator=g).to(device)
+
+
+def _masked_cumsum(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """The engine's masked inclusive sum of integer-valued x: invalid rows
+    are the identity; rows before the first valid one pass through."""
+    out = torch.cumsum(torch.where(valid, x, 0.0).double(), 0).float()
+    first = int(valid.nonzero()[0])
+    out[:first] = x[:first]
+    return out
 
 
 def _deformations(n: int, device, seed: int) -> dict:
@@ -294,6 +333,22 @@ def check_lookback_scan(device) -> dict:
     library_ms = _time_ms(lambda: torch.cumsum(x, 0))
     nbytes = 2 * n * d * 4 + t * (2 * d * 4 + 4)
 
+    # max over random floats, exact against the plain version and cummax.
+    xf = _floats(n, d, device, seed=10)
+    got = lb.lookback_scan_cuda(torch.maximum, xf, t)
+    want = lb.lookback_scan_reference(torch.maximum, xf, t)
+    torch.cuda.synchronize()
+    err_max = max(_require_equal(g, w, f"lookback_scan max {what}")
+                  for g, w, what in zip(got, want, ("y", "status", "aggs",
+                                                    "prefs")))
+    _require_equal(got[0], torch.cummax(xf, 0).values, "lookback_scan max "
+                   "vs torch.cummax")
+    max_row = {"max_abs_err": err_max,
+               "ms": _time_ms(lambda: lb.lookback_scan_cuda(torch.maximum,
+                                                            xf, t)),
+               "library_ms": _time_ms(lambda: torch.cummax(xf, 0)),
+               "library_call": "torch.cummax(x, 0)"}
+
     # Rigid composition at the paper's series length, one tile and many.
     dfm = _deformations(SERIES_LEN, device, seed=2)
     x2, spec = pack_leaves(dfm)
@@ -326,7 +381,7 @@ def check_lookback_scan(device) -> dict:
         "ms": ms, "plain_ms": plain_ms, **_bound(nbytes, n * d),
         "library_ms": library_ms, "library_call": "torch.cumsum(x, 0)",
         "walk_steps_max": int(walk.max()), "walk_steps_mean": float(walk.mean()),
-        "rigid_compose": rigid,
+        "rigid_compose": rigid, "max": max_row,
     }
 
 
@@ -402,8 +457,27 @@ def check_tile_kernels(device) -> tuple:
                "library_ms": None}
 
     main_t = TILE_COUNTS[0]
+    # max over random floats at the engine's segment count, exact.
+    xf = _floats(n, d, device, seed=11)
+    loc, parts = ts.tile_local_scan_cuda(torch.maximum, xf, main_t)
+    ploc, pparts = ts.tile_local_scan_reference(torch.maximum, xf, main_t)
+    seeds_m = torch.cat([pparts[:1], torch.cummax(pparts, 0).values[:-1]])
+    out = ts.tile_apply_cuda(torch.maximum, ploc, seeds_m)
+    pout = ts.tile_apply_reference(torch.maximum, ploc, seeds_m)
+    torch.cuda.synchronize()
+    max_l = {"tiles": main_t,
+             "max_abs_err": max(_require_equal(loc, ploc, "tile_local_scan max"),
+                                _require_equal(parts, pparts, "tile max partials")),
+             "ms": _time_ms(lambda: ts.tile_local_scan_cuda(torch.maximum, xf,
+                                                            main_t))}
+    max_a = {"tiles": main_t,
+             "max_abs_err": _require_equal(out, pout, "tile_apply max"),
+             "ms": _time_ms(lambda: ts.tile_apply_cuda(torch.maximum, ploc,
+                                                       seeds_m))}
+    _require_equal(out, torch.cummax(xf, 0).values, "tile kernels max vs "
+                   "torch.cummax")
 
-    def line(name, replaces, rows, err, rigid, call):
+    def line(name, replaces, rows, err, rigid, call, mx):
         head = rows[main_t]
         return {
             "name": name, "route": "cuda", "source": ts.SOURCE,
@@ -413,13 +487,159 @@ def check_tile_kernels(device) -> tuple:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "library_call": call,
             "by_tiles": {str(t): r for t, r in rows.items()},
-            "rigid_compose": rigid,
+            "rigid_compose": rigid, "max": mx,
         }
 
     return (line(ts.LOCAL_NAME, ts.LOCAL_REPLACES, local_rows, err_l, rigid_l,
-                 "torch.cumsum(x.view(T, K, d), 1)"),
+                 "torch.cumsum(x.view(T, K, d), 1)", max_l),
             line(ts.APPLY_NAME, ts.APPLY_REPLACES, apply_rows, err_a, rigid_a,
-                 "local + seeds[:, None]"))
+                 "local + seeds[:, None]", max_a))
+
+
+def _live_rounds(plan) -> int:
+    return sum(1 for r in plan.rounds if r.num_combines or r.num_moves)
+
+
+def check_fused_round(device) -> dict:
+    """The fused_round kernel against its plain version, round by round on
+    the same input, exact: add over integer-valued rows (d = 1 and 4) and
+    max over random floats for each circuit at n = 2^16, a masked
+    Ladner-Fischer plan, and rigid composition of 4096 deformations (to
+    tolerance, and against the float64 chain).  Plans and their operand
+    tables are built before every timed window."""
+    from repro_torch.core.deformation import compose_batched
+    from repro_torch.core.engine import get_plan, scan
+    from repro_torch.core.engine.pallas_backend import _round_index_tensors
+    from repro_torch.kernels import tile_scan as ts
+    from repro_torch.kernels._tiling import pack_leaves, packed_op
+
+    n = ROUNDS_N
+
+    def rounds(fn, op, x, live):
+        y = x
+        for src in live:
+            y = fn(op, y, src)
+        return y
+
+    def held(op, x, live, what) -> float:
+        y, err = x, 0.0
+        for src in live:
+            yk = ts.fused_round_cuda(op, y, src)
+            yp = ts.fused_round_reference(op, y, src)
+            err = max(err, _require_equal(yk, yp, f"fused_round {what}"))
+            y = yk
+        return err
+
+    data = {"add_d1": (torch.add, _ints(n, 1, device, seed=12)),
+            "add_d4": (torch.add, _ints(n, 4, device, seed=13)),
+            "max_d1": (torch.maximum, _floats(n, 1, device, seed=14))}
+    by_case, err = {}, 0.0
+    for alg in ROUND_CIRCUITS:
+        t0 = time.perf_counter()
+        plan = get_plan(alg, n)         # host compilation, once a plan
+        plan_s = time.perf_counter() - t0
+        live = [s for s in _round_index_tensors(plan, device) if s is not None]
+        for label, (op, x) in data.items():
+            e = held(op, x, live, f"{alg} {label}")
+            y = rounds(ts.fused_round_cuda, op, x, live)
+            lib = (torch.cumsum(x.double(), 0).float() if op is torch.add
+                   else torch.cummax(x, 0).values)
+            if plan.exclusive:          # Blelloch: y[i] = x[0] o ... o x[i-1]
+                _require_equal(y[1:], lib[:-1], f"fused_round {alg} {label} "
+                               "vs the library scan")
+            else:
+                _require_equal(y, lib, f"fused_round {alg} {label} vs the "
+                               "library scan")
+            err = max(err, e)
+            row = {"rounds": len(live), "max_abs_err": e, "plan_s": plan_s}
+            if label != "add_d4":
+                d = x.shape[1]
+                lib_fn = ((lambda x=x: torch.cumsum(x, 0)) if op is torch.add
+                          else (lambda x=x: torch.cummax(x, 0)))
+                xs1 = x[:, 0]
+                chain = _time_ms(lambda op=op, x=x: rounds(
+                    ts.fused_round_cuda, op, x, live), reps=20)
+                row.update({
+                    "ms": chain, "ms_per_round": chain / len(live),
+                    "graph_ms": _graph_ms(lambda op=op, x=x: rounds(
+                        ts.fused_round_cuda, op, x, live)),
+                    "scan_ms": _time_ms(lambda op=op, xs1=xs1: scan(
+                        op, xs1, backend="pallas", algorithm=alg), reps=20),
+                    "plain_ms": _time_ms(lambda op=op, x=x: rounds(
+                        ts.fused_round_reference, op, x, live), reps=3,
+                        warmup=1),
+                    "library_ms": _time_ms(lib_fn),
+                    **_bound(len(live) * (2 * n * d * 4 + 8 * n),
+                             plan.work() * d),
+                })
+            by_case[f"{alg}/{label}"] = row
+
+    # One masked Ladner-Fischer plan (moves as well as combines).
+    x = data["add_d1"][1]
+    valid = (torch.arange(n, device=device) % 7) != 3
+    valid[:5] = False
+    plan = get_plan("ladner_fischer", n, mask=(~valid).tolist())
+    live = [s for s in _round_index_tensors(plan, device) if s is not None]
+    e = held(torch.add, x, live, "masked ladner_fischer")
+    y = rounds(ts.fused_round_cuda, torch.add, x, live)
+    _require_equal(y[:, 0], _masked_cumsum(x[:, 0], valid),
+                   "fused_round masked vs the masked sum")
+    err = max(err, e)
+    by_case["ladner_fischer_masked/add_d1"] = {
+        "rounds": len(live), "moves": plan.num_moves(), "max_abs_err": e}
+
+    # Rigid composition at the paper's series length: order shows here.
+    dfm = _deformations(SERIES_LEN, device, seed=15)
+    x2, spec = pack_leaves(dfm)
+    pop = packed_op(compose_batched, spec)
+    a64, s64 = _chain64(dfm["angle"], dfm["shift"])
+    plan = get_plan("ladner_fischer", SERIES_LEN)
+    live = [s for s in _round_index_tensors(plan, device) if s is not None]
+    atol = _rigid_atol(s64)
+    y, rigid_err = x2, 0.0
+    for src in live:
+        yk = ts.fused_round_cuda(pop, y, src)
+        yp = ts.fused_round_reference(pop, y, src)
+        torch.cuda.synchronize()
+        if not torch.allclose(yk, yp, rtol=RIGID_RTOL, atol=atol):
+            raise AssertionError("fused_round rigid: kernel and plain disagree")
+        rigid_err = max(rigid_err, float((yk - yp).abs().max()))
+        y = yk
+    rigid = {"n": SERIES_LEN, "rounds": len(live),
+             "max_abs_err_vs_plain": rigid_err,
+             **_check_vs_chain64(y[:, 0], y[:, 1:], a64, s64,
+                                 "fused_round rigid"),
+             "ms": _time_ms(lambda: rounds(ts.fused_round_cuda, pop, x2, live)),
+             "plain_ms": _time_ms(lambda: rounds(ts.fused_round_reference, pop,
+                                                 x2, live), reps=5),
+             "library_ms": None}
+
+    # Host time of the cache hits a rounds-mode engine call makes (plan and
+    # operand tables; both keys hold the plan's n-long identity mask).
+    reps = 20
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        _round_index_tensors(get_plan("ladner_fischer", n), device)
+    lookup_ms = (time.perf_counter() - t0) / reps * 1e3
+
+    head = by_case["ladner_fischer/add_d1"]
+    return {
+        "name": ts.FUSED_NAME, "route": "cuda", "source": ts.FUSED_SOURCE,
+        "replaces": ts.FUSED_REPLACES, "shape": [n, 1], "op": "add",
+        "circuit": "ladner_fischer", "max_abs_err": err,
+        "ms": head["ms"], "ms_per_round": head["ms_per_round"],
+        "graph_ms": head["graph_ms"], "plan_lookup_ms": lookup_ms,
+        "scan_ms": head["scan_ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"], "library_call": "torch.cumsum(x, 0)",
+        "timing": "ms, plain_ms: all rounds of the plan through the kernel "
+                  "wrapper / the plain version; graph_ms: the same launches "
+                  "replayed from a CUDA graph; scan_ms: engine.scan(backend="
+                  "'pallas'); plan_lookup_ms: host time of its cache hits; "
+                  "plan_s: host plan compilation; bound_ms: the rounds' "
+                  "bytes summed",
+        "by_case": by_case, "rigid_compose": rigid,
+    }
 
 
 def run_series(device, n_frames: int, size: int, **cfg_kw) -> dict:
@@ -550,11 +770,12 @@ def run_series_compose(device, n_frames: int, size: int) -> dict:
     return out
 
 
-def run_scan_engine(device, n: int, series_len: int) -> dict:
-    """``repro_torch.core.engine.scan`` on ``device`` tensors by dispatch,
-    each call with its launch counts and result checked."""
+def run_scan_engine(device, n: int, series_len: int, rounds_n: int) -> dict:
+    """``repro_torch.core.engine.scan`` on ``device`` tensors, by dispatch
+    and through the ``pallas`` backend's two modes (rounds at ``rounds_n``,
+    tiles at ``n``), each call with its launch counts and result checked."""
     from repro_torch.core.deformation import compose_batched
-    from repro_torch.core.engine import hierarchical, scan
+    from repro_torch.core.engine import get_plan, hierarchical, scan
     from repro_torch.kernels import launch_counts, reset_launch_counts
 
     on_card = device.type == "cuda"
@@ -572,6 +793,20 @@ def run_scan_engine(device, n: int, series_len: int) -> dict:
     add.op_identity = lambda: torch.zeros((1,), device=device)
     add.kernel_op = "add"
     elems = [x[i : i + 1] for i in range(series_len)]
+    xr = x[:rounds_n]
+    valid_r = valid[:rounds_n]
+    masked_r = _masked_cumsum(xr, valid_r)
+    where_r = valid_r.tolist()
+    xf = _floats(n, 1, device, seed=16)[:, 0]
+    cummax = torch.cummax(xf, 0).values
+    # Plans are compiled here, before the timed calls (as a session would
+    # hold them); each rounds-mode call launches fused_round once a
+    # non-empty round.
+    lf = _live_rounds(get_plan("ladner_fischer", rounds_n))
+    lf_masked = _live_rounds(get_plan("ladner_fischer", rounds_n,
+                                      mask=[not v for v in where_r]))
+    bl = _live_rounds(get_plan("blelloch", rounds_n))
+    tiles = {"tile_local_scan": 1, "tile_apply": 1}
 
     calls = [
         ("decoupled_add", lambda: scan(torch.add, x),
@@ -593,8 +828,28 @@ def run_scan_engine(device, n: int, series_len: int) -> dict:
          lambda y: torch.equal(torch.cat(y), exact[:series_len])
          and hierarchical.last_stats.device_phase1,
          {"tile_local_scan": 1, "tile_apply": 1}),
+        ("pallas_rounds_add",
+         lambda: scan(torch.add, xr, backend="pallas",
+                      algorithm="ladner_fischer"),
+         lambda y: torch.equal(y, exact[:rounds_n]), {"fused_round": lf}),
+        ("pallas_rounds_add_masked",
+         lambda: scan(torch.add, xr, backend="pallas",
+                      algorithm="ladner_fischer", where=where_r),
+         lambda y: torch.equal(y, masked_r), {"fused_round": lf_masked}),
+        ("pallas_rounds_add_blelloch",
+         lambda: scan(torch.add, xr, backend="pallas", algorithm="blelloch"),
+         lambda y: torch.equal(y, exact[:rounds_n]), {"fused_round": bl}),
+        ("pallas_tiles_add_16",
+         lambda: scan(torch.add, x, backend="pallas",
+                      num_blocks=PALLAS_TILES[0]),
+         lambda y: torch.equal(y, exact), tiles),
+        ("pallas_tiles_max_4096",
+         lambda: scan(torch.maximum, xf, backend="pallas",
+                      num_blocks=PALLAS_TILES[1]),
+         lambda y: torch.equal(y, cummax), tiles),
     ]
-    out = {"n": n, "series_len": series_len, "calls": {}}
+    out = {"n": n, "rounds_n": rounds_n, "series_len": series_len,
+           "calls": {}}
     for name, call, ok, want_launches in calls:
         # Twice: the first call also pays one-time set-up (plans, index
         # tensors, PyTorch's first use of an operator on the device).
@@ -649,7 +904,7 @@ def main() -> int:
             dev, 5, 96, backend="hierarchical", num_segments=2,
             num_threads=2))
         _line("series_compose", run_series_compose(dev, 17, 64))
-        _line("scan_engine", run_scan_engine(dev, 1 << 12, 256))
+        _line("scan_engine", run_scan_engine(dev, 1 << 12, 256, 1 << 10))
         _close_pool()
         print("cpu rehearsal: no result", file=sys.stderr)
         return 3
@@ -669,7 +924,7 @@ def main() -> int:
         "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
     })
 
-    libraries = ["warp_ncc", "lookback_scan", "tile_scan"]
+    libraries = ["warp_ncc", "lookback_scan", "tile_scan", "fused_round"]
     secs = _cuda.build(libraries)
     ptxas = {name: [ln.strip() for ln in _cuda.build_log(name).splitlines()
                     if "registers" in ln or "spill" in ln]
@@ -683,6 +938,8 @@ def main() -> int:
     kt_local, kt_apply = check_tile_kernels(dev)
     _line("kernel tile_local_scan", kt_local)
     _line("kernel tile_apply", kt_apply)
+    kf = check_fused_round(dev)
+    _line("kernel fused_round", kf)
 
     series = run_series(dev, 33, SIZE)
     _line("series", series)
@@ -691,7 +948,7 @@ def main() -> int:
     _line("series_hier", hier)
     compose = run_series_compose(dev, 257, SIZE)
     _line("series_compose", compose)
-    engine = run_scan_engine(dev, SCAN_N, SERIES_LEN)
+    engine = run_scan_engine(dev, SCAN_N, SERIES_LEN, ROUNDS_N)
     _line("scan_engine", engine)
 
     k["launches"] = series["warp_ncc_launches"]
@@ -703,14 +960,14 @@ def main() -> int:
     kl["launches_series_compose"] = compose["lookback_scan_launches"]
     kl["launches_scan_engine"] = engine_launches.get("lookback_scan", 0)
     kl["launches"] = kl["launches_series_compose"] + kl["launches_scan_engine"]
-    for kt in (kt_local, kt_apply):
+    for kt in (kt_local, kt_apply, kf):
         kt["launches"] = kt["launches_scan_engine"] = engine_launches.get(
             kt["name"], 0)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     rows = []
-    for entry in (k, kl, kt_local, kt_apply):
+    for entry in (k, kl, kt_local, kt_apply, kf):
         if not entry["launches"] >= 1:
             raise AssertionError(f"{entry['name']} was never launched on "
                                  "the main path")

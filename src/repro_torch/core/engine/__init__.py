@@ -4,9 +4,10 @@ compiler, pluggable backends, cost-model dispatch.
   circuits.py   prefix-circuit IR (rounds of combine/cross/zero entries)
   plan.py       ``lower``: circuit → :class:`ExecutionPlan`, LRU-cached
   backends.py   registry of plan-consuming executors (vector / element /
-                blocked / worksteal, + hierarchical from hierarchical.py and
-                decoupled from decoupled_backend.py; the backends of later
-                slices are registered as stubs)
+                blocked / worksteal, + hierarchical from hierarchical.py,
+                decoupled from decoupled_backend.py and pallas from
+                pallas_backend.py; the backends of later slices are
+                registered as stubs)
   cost.py       operator cost model + dispatcher
 
 Public entry point::
@@ -68,9 +69,10 @@ from .telemetry import (
     release_telemetry,
 )
 
-# Register the "hierarchical" and "decoupled" backends on import.
+# Register the "hierarchical", "decoupled" and "pallas" backends on import.
 from . import decoupled_backend as _decoupled  # noqa: F401
 from . import hierarchical as _hierarchical  # noqa: F401
+from . import pallas_backend as _pallas  # noqa: F401
 
 Op = Callable[[Any, Any], Any]
 
@@ -215,7 +217,9 @@ def scan(
     Backend-specific options: ``num_blocks``/``strategy`` (blocked),
     ``num_threads``/``stealing`` (worksteal), ``num_segments``/
     ``num_threads``/``cross_steal``/``element_costs`` (hierarchical),
-    ``num_blocks`` (decoupled: the tile count).  ``use_pallas``
+    ``num_blocks`` (decoupled: the tile count; pallas: above 1, tiles mode
+    with that many tiles, else one ``fused_round`` launch a plan round).
+    ``use_pallas``
     (hierarchical array and device phase-1 paths): run the local phases
     through the ``tile_local_scan``/``tile_apply`` kernels; default: when
     the tensors lie on CUDA and the op has a kernel form.

@@ -15,10 +15,12 @@ zeroing), else None.  Registered backends:
   hierarchical  two-level reduce-then-scan (``engine/hierarchical.py``)
   decoupled  single-pass decoupled-lookback scan
              (``engine/decoupled_backend.py``)
+  pallas     plan rounds as ``fused_round`` kernels, or tiles over the tile
+             kernels (``engine/pallas_backend.py``)
 
 Not ported yet, registered as stubs that raise ``NotImplementedError``
 naming their ``ROADMAP.md`` item, so that a dispatch to one is loud:
-``simulate``, ``collective``, ``pallas`` and ``sharded``.
+``simulate``, ``collective`` and ``sharded``.
 """
 
 from __future__ import annotations
@@ -196,7 +198,6 @@ def exec_worksteal(
 
 #: Backend -> the ``ROADMAP.md`` item (Queue 1) that ports it.
 UNPORTED = {
-    "pallas": "Queue 1 item 3 (pallas backend + fused_round kernel)",
     "simulate": "Queue 1 item 4 (simulator)",
     "collective": "Queue 1 item 4 (distributed / sharded execution)",
     "sharded": "Queue 1 item 4 (distributed / sharded execution)",

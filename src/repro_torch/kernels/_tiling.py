@@ -4,9 +4,11 @@ Port of ``repro/kernels/_tiling.py``.  Both scan kernels (``tile_scan.py``'s
 local–global–local tiles and ``lookback_scan.py``'s single-pass decoupled
 lookback) need the same plumbing around the kernel proper:
 
-* **one-hot round matrices** (:func:`build_round_matrices`, numpy) lowering
-  a ``PlanRound``'s static gather/scatter index sets to matrices — for the
-  fused round kernel of a later slice;
+* **round lowerings**: :func:`round_sources` (numpy) lowers a
+  ``PlanRound``'s static gather/scatter index sets to the per-output-row
+  operand table the ``fused_round`` kernel reads; :func:`build_round_matrices`
+  keeps the reference's one-hot matrices, which the parity tests hand to the
+  reference's kernel;
 * **tile sizing and padding** (:func:`default_num_tiles`,
   :func:`default_num_tiles_cuda`, :func:`pad_rows`) — kernels want ``n``
   divisible by the tile count; the pad rows repeat the last element so a
@@ -75,6 +77,27 @@ def build_round_matrices(rnd, n: int):
             sm[out, i] = 1.0
             keep[out, 0] = 0.0
     return ga, gb, sc, gm, sm, keep
+
+
+def round_sources(rnd, n: int) -> Optional[np.ndarray]:
+    """The operand table of one PlanRound for the ``fused_round`` kernel.
+
+    Returns (n, 2) int32 ``(src_a, src_b)`` per output row ``r``: a
+    combined row reads ``(a, b)`` (``out[r] = op(y[a], y[b])``), a moved
+    row ``(src, -1)`` and a kept row ``(r, -1)``, so every output row is
+    written exactly once.  None for a round with nothing to do.
+    """
+    m = rnd.num_combines
+    if not m and not rnd.num_moves:
+        return None
+    out = rnd.upd_idx
+    src = np.empty((n, 2), dtype=np.int32)
+    src[:, 0] = np.arange(n, dtype=np.int32)
+    src[:, 1] = -1
+    src[out[:m], 0] = rnd.a_idx
+    src[out[:m], 1] = rnd.b_idx
+    src[out[m:], 0] = rnd.mv_src
+    return src
 
 
 # ---------------------------------------------------------------------------

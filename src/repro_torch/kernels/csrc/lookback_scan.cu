@@ -80,30 +80,22 @@ int launch_masked(int masked, const void* x, const void* seed, void* y,
 
 }  // namespace
 
-// op: kOpAdd / kOpRigid; d: operator lanes (the row holds d + masked);
-// seed: null for an unseeded scan; steps: null, or (t) int32 that receives
-// each tile's lookback walk length (tile 0 is left as it is).  Returns a
-// cudaError_t, or cudaErrorInvalidValue for an (op, d) outside the table.
+// op: an entry of scan_ops.cuh's table; d: operator lanes (the row holds
+// d + masked); seed: null for an unseeded scan; steps: null, or (t) int32
+// that receives each tile's lookback walk length (tile 0 is left as it is).
+// Returns a cudaError_t, or cudaErrorInvalidValue for an (op, d) outside the
+// table.
 extern "C" int lookback_scan_launch(int op, int d, int masked, const void* x,
                                     const void* seed, void* y, void* status,
                                     void* aggs, void* prefs, void* counter,
                                     void* steps, int t, int k, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (t < 1 || k < 1) return (int)cudaErrorInvalidValue;
-  if (op == kOpAdd) {
-    switch (d) {
-      case 1: return launch_masked<kOpAdd, 1>(masked, x, seed, y, status, aggs, prefs, counter, steps, t, k, st);
-      case 2: return launch_masked<kOpAdd, 2>(masked, x, seed, y, status, aggs, prefs, counter, steps, t, k, st);
-      case 3: return launch_masked<kOpAdd, 3>(masked, x, seed, y, status, aggs, prefs, counter, steps, t, k, st);
-      case 4: return launch_masked<kOpAdd, 4>(masked, x, seed, y, status, aggs, prefs, counter, steps, t, k, st);
-      default: return (int)cudaErrorInvalidValue;
-    }
-  }
-  if (op == kOpRigid && d == 3) {
-    return launch_masked<kOpRigid, 3>(masked, x, seed, y, status, aggs, prefs,
+  return dispatch_entry(op, d, [&](auto e) {
+    using E = decltype(e);
+    return launch_masked<E::op, E::d>(masked, x, seed, y, status, aggs, prefs,
                                       counter, steps, t, k, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  });
 }
 
 extern "C" const char* lookback_scan_error_string(int err) {

@@ -1,5 +1,5 @@
 // The operator table and the block-wide scan shared by the scan kernels
-// (lookback_scan.cu, tile_scan.cu).
+// (lookback_scan.cu, tile_scan.cu, fused_round.cu).
 //
 // A CUDA kernel cannot call the Python operator the engine scans with, so
 // each scan kernel is compiled once per entry of this table and the wrapper
@@ -8,6 +8,11 @@
 //   kOpAdd    a + b lane by lane, D lanes (1..4)
 //   kOpRigid  rigid deformations packed [angle, shift0, shift1] (D = 3):
 //             angle = a0 + b0, shift = R(b0) (a1, a2) + (b1, b2)
+//   kOpMax    max(a, b) lane by lane, D lanes (1..4); a NaN in either
+//             operand gives NaN, as torch.maximum does (fmaxf would drop it)
+//
+// dispatch_entry maps the (op, D) a wrapper passes at run time to the
+// compiled entry, so each kernel's C interface lists the table once.
 //
 // Every combine is op(earlier, later): rigid composition does not commute,
 // so the order is kept in every step of every scan.  The rigid entry uses
@@ -29,6 +34,7 @@ namespace scan_ops {
 
 constexpr int kOpAdd = 0;
 constexpr int kOpRigid = 1;
+constexpr int kOpMax = 2;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -94,6 +100,50 @@ struct Op<kOpRigid, 3> {
     return r;
   }
 };
+
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return (a != a || a > b) ? a : b;
+}
+
+template <int D>
+struct Op<kOpMax, D> {
+  template <int W>
+  __device__ __forceinline__ static Row<W> apply(const Row<W>& a,
+                                                 const Row<W>& b) {
+    Row<W> r;
+#pragma unroll
+    for (int j = 0; j < D; ++j) r.v[j] = max_nan(a.v[j], b.v[j]);
+    return r;
+  }
+};
+
+// A table entry as a type: the operator code and its lanes.
+template <int OP_, int D_>
+struct Entry {
+  static constexpr int op = OP_;
+  static constexpr int d = D_;
+};
+
+template <int OP, class F>
+int dispatch_lanes(int d, F& f) {
+  switch (d) {
+    case 1: return f(Entry<OP, 1>{});
+    case 2: return f(Entry<OP, 2>{});
+    case 3: return f(Entry<OP, 3>{});
+    case 4: return f(Entry<OP, 4>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Calls f(Entry<op, d>{}) for an (op, d) of the table and returns what it
+// returns; cudaErrorInvalidValue for anything else.
+template <class F>
+int dispatch_entry(int op, int d, F&& f) {
+  if (op == kOpAdd) return dispatch_lanes<kOpAdd>(d, f);
+  if (op == kOpMax) return dispatch_lanes<kOpMax>(d, f);
+  if (op == kOpRigid && d == 3) return f(Entry<kOpRigid, 3>{});
+  return (int)cudaErrorInvalidValue;
+}
 
 // One table entry, optionally lifted over the identity-flag lane.
 template <int OP, int D, bool MASKED>

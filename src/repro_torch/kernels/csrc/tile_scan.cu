@@ -80,7 +80,7 @@ int launch_apply(const void* local, const void* seeds, void* out, int t, int k,
 
 }  // namespace
 
-// op: kOpAdd (d = 1..4) / kOpRigid (d = 3).  Return a cudaError_t, or
+// op, d: an entry of scan_ops.cuh's table.  Return a cudaError_t, or
 // cudaErrorInvalidValue for an (op, d) outside the table.
 //
 // tile_local_scan: each of the t tiles of k rows is cut into
@@ -99,23 +99,12 @@ extern "C" int tile_local_scan_launch(int op, int d, const void* x,
       (long long)chunk_rows * (chunks_per_tile - 1) >= k) {
     return (int)cudaErrorInvalidValue;
   }
-#define TILE_LOCAL_ARGS \
-  x, local, partials, status, aggs, prefs, counter, t, k, chunk_rows, \
-      chunks_per_tile, st
-  if (op == kOpAdd) {
-    switch (d) {
-      case 1: return launch_local<kOpAdd, 1>(TILE_LOCAL_ARGS);
-      case 2: return launch_local<kOpAdd, 2>(TILE_LOCAL_ARGS);
-      case 3: return launch_local<kOpAdd, 3>(TILE_LOCAL_ARGS);
-      case 4: return launch_local<kOpAdd, 4>(TILE_LOCAL_ARGS);
-      default: return (int)cudaErrorInvalidValue;
-    }
-  }
-  if (op == kOpRigid && d == 3) {
-    return launch_local<kOpRigid, 3>(TILE_LOCAL_ARGS);
-  }
-#undef TILE_LOCAL_ARGS
-  return (int)cudaErrorInvalidValue;
+  return dispatch_entry(op, d, [&](auto e) {
+    using E = decltype(e);
+    return launch_local<E::op, E::d>(x, local, partials, status, aggs, prefs,
+                                     counter, t, k, chunk_rows,
+                                     chunks_per_tile, st);
+  });
 }
 
 extern "C" int tile_apply_launch(int op, int d, const void* local,
@@ -123,19 +112,10 @@ extern "C" int tile_apply_launch(int op, int d, const void* local,
                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (t < 1 || k < 1) return (int)cudaErrorInvalidValue;
-  if (op == kOpAdd) {
-    switch (d) {
-      case 1: return launch_apply<kOpAdd, 1>(local, seeds, out, t, k, st);
-      case 2: return launch_apply<kOpAdd, 2>(local, seeds, out, t, k, st);
-      case 3: return launch_apply<kOpAdd, 3>(local, seeds, out, t, k, st);
-      case 4: return launch_apply<kOpAdd, 4>(local, seeds, out, t, k, st);
-      default: return (int)cudaErrorInvalidValue;
-    }
-  }
-  if (op == kOpRigid && d == 3) {
-    return launch_apply<kOpRigid, 3>(local, seeds, out, t, k, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  return dispatch_entry(op, d, [&](auto e) {
+    using E = decltype(e);
+    return launch_apply<E::op, E::d>(local, seeds, out, t, k, st);
+  });
 }
 
 extern "C" const char* tile_scan_error_string(int err) {

@@ -2,8 +2,8 @@
 to one of them.
 
 A CUDA kernel cannot call a Python operator, so the scan kernels
-(``csrc/lookback_scan.cu``, ``csrc/tile_scan.cu``) are compiled once per
-entry of a small table (``csrc/scan_ops.cuh``):
+(``csrc/lookback_scan.cu``, ``csrc/tile_scan.cu``, ``csrc/fused_round.cu``)
+are compiled once per entry of a small table (``csrc/scan_ops.cuh``):
 
   add            ``a + b`` lane by lane, float32 rows of width ``d <= 4``
                  (``torch.add``, ``operator.add``, or any callable tagged
@@ -11,7 +11,11 @@ entry of a small table (``csrc/scan_ops.cuh``):
   rigid_compose  rigid deformations packed as ``[angle, shift0, shift1]``
                  (``core/deformation.py:compose_batched``, tagged there):
                  ``angle = a0 + b0``, ``shift = R(b0) (a1, a2) + (b1, b2)``,
-                 in ``op(earlier, later)`` order.
+                 in ``op(earlier, later)`` order;
+  max            ``torch.maximum(a, b)`` lane by lane, NaN-propagating as
+                 ``torch.maximum`` is, float32 rows of width ``d <= 4``
+                 (``torch.maximum``, or any callable tagged
+                 ``kernel_op = "max"``).
 
 The lookback kernel also takes a ``masked`` flag: one more lane carries the
 ``where=`` identity flag and the op is lifted as ``_tiling.lift_masked``
@@ -34,11 +38,12 @@ import torch
 from repro_torch.core._tree import tree_flatten
 
 #: Entry name -> the code the C interface takes (``scan_ops.cuh``).
-KERNEL_OPS = {"add": 0, "rigid_compose": 1}
+KERNEL_OPS = {"add": 0, "rigid_compose": 1, "max": 2}
 #: Widest row (operator lanes, not counting the mask flag) a kernel takes.
 MAX_WIDTH = 4
-TABLE = ("add (float32, d <= 4), rigid_compose (float32 [angle, shift0, "
-         "shift1], d = 3); the lookback kernel adds a where= flag lane")
+TABLE = ("add (float32, d <= 4), max (float32, d <= 4), rigid_compose "
+         "(float32 [angle, shift0, shift1], d = 3); the lookback kernel adds "
+         "a where= flag lane")
 
 
 class KernelOpError(ValueError):
@@ -49,6 +54,8 @@ def kernel_op_of(op: Any) -> Optional[str]:
     """The table entry ``op`` maps to, or None."""
     if op is torch.add or op is operator.add:
         return "add"
+    if op is torch.maximum:
+        return "max"
     name = getattr(op, "kernel_op", None)
     return name if name in KERNEL_OPS else None
 

@@ -1,19 +1,23 @@
-"""The local phases of the local–global–local scan: CUDA kernels and their
-plain versions.
+"""The engine's tile-scan kernels: CUDA kernels and their plain versions.
 
-Port of ``repro/kernels/tile_scan.py:tile_local_scan`` and ``:tile_apply``
-(the paper's §4.1 decomposition with each local phase one launch):
+Port of ``repro/kernels/tile_scan.py``, whose three Pallas kernels carry
+the ``pallas`` backend (``core/engine/pallas_backend.py``) and the
+hierarchical array paths:
 
+* :func:`fused_round` — one round of a compiled plan, ``out[r] =
+  op(y[a], y[b])`` for combined rows and ``y[src]`` for the rest, read by
+  index from the round's operand table (``_tiling.round_sources``; the
+  reference multiplies one-hot matrices instead);
 * :func:`tile_local_scan` — per-tile inclusive scans plus the tile totals
-  for the global phase;
+  for the global phase of the paper's §4.1 local–global–local scan;
 * :func:`tile_apply` — folds each tile's exclusive global prefix into its
   local scan with one batched operator application; tile 0 passes through.
 
 The small global phase over the tile totals runs outside (the engine's
 vector executor on the plan).  Each function takes its route from where its
 tensors lie: CPU tensors run the plain PyTorch version; CUDA tensors launch
-``csrc/tile_scan.cu`` (built at first use) or raise.  The fused round kernel
-of the same reference module belongs to a later slice (``ROADMAP.md``).
+``csrc/fused_round.cu`` or ``csrc/tile_scan.cu`` (built at first use) or
+raise.
 """
 
 from __future__ import annotations
@@ -32,12 +36,88 @@ Op = Callable[[Any, Any], Any]
 
 LIBRARY = "tile_scan"
 SOURCE = "src/repro_torch/kernels/csrc/tile_scan.cu"
+FUSED_NAME = "fused_round"
+FUSED_SOURCE = "src/repro_torch/kernels/csrc/fused_round.cu"
+FUSED_REPLACES = "src/repro/kernels/tile_scan.py:50"
+FUSED_LAUNCHES = _cuda.launch_counter(FUSED_NAME)
 LOCAL_NAME = "tile_local_scan"
 APPLY_NAME = "tile_apply"
 LOCAL_REPLACES = "src/repro/kernels/tile_scan.py:126"
 APPLY_REPLACES = "src/repro/kernels/tile_scan.py:165"
 LOCAL_LAUNCHES = _cuda.launch_counter(LOCAL_NAME)
 APPLY_LAUNCHES = _cuda.launch_counter(APPLY_NAME)
+
+
+def _round_args(y: torch.Tensor, src: torch.Tensor) -> Tuple[int, int]:
+    if y.dim() != 2 or src.shape != (y.shape[0], 2):
+        raise ValueError(
+            f"fused_round takes y (n, d) and src (n, 2), got {tuple(y.shape)} "
+            f"and {tuple(src.shape)}"
+        )
+    return y.shape[0], y.shape[1]
+
+
+def fused_round_reference(op: Op, y: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_round`, for any op and float
+    dtype: an index gather, one ``op`` call on the combined rows, an index
+    scatter."""
+    _round_args(y, src)
+    a = src[:, 0].long()
+    b = src[:, 1].long()
+    out = y[a]
+    rows = torch.nonzero(b >= 0).squeeze(1)
+    if rows.numel():
+        out = out.index_copy(0, rows, op(y[a[rows]], y[b[rows]]))
+    return out
+
+
+def fused_round_cuda(op: Op, y: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """Launch the ``fused_round`` kernel into a new buffer (all reads of the
+    round happen before any write); raises on anything it does not take."""
+    n, d = _round_args(y, src)
+    name = check_kernel_row(op, d)
+    _check_tensor("fused_round kernel", y)
+    if src.device != y.device or src.dtype != torch.int32:
+        raise ValueError("fused_round kernel: src must be int32 on y's device")
+    dev = y.device
+    with torch.cuda.device(dev):
+        yc, sc = y.contiguous(), src.contiguous()
+        if sc.data_ptr() % 8:
+            sc = sc.clone()
+        out = torch.empty_like(yc)
+        fn, error_string = _fused_entry()
+        err = fn(KERNEL_OPS[name], d, yc.data_ptr(), sc.data_ptr(),
+                 out.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, FUSED_NAME, error_string)
+    FUSED_LAUNCHES.add()
+    return out
+
+
+def fused_round(op: Op, y: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """One plan round: ``out[r] = op(y[src[r, 0]], y[src[r, 1]])`` where
+    ``src[r, 1] >= 0``, else ``y[src[r, 0]]``.
+
+    ``y``: (n, d); ``src``: the round's (n, 2) int32 operand table
+    (``_tiling.round_sources``) on ``y``'s device.  Returns a new (n, d)
+    tensor.  CPU tensors take the plain version; CUDA tensors launch the
+    kernel.
+    """
+    if y.device.type == "cpu":
+        return fused_round_reference(op, y, src)
+    return fused_round_cuda(op, y, src)
+
+
+def _fused_entry():
+    """The fused_round library's launch entry and error string, typed."""
+    lib = _cuda.load(FUSED_NAME)
+    fn = lib.fused_round_launch
+    if fn.argtypes is None:  # argtypes last: it marks the entry as typed
+        fn.restype = ctypes.c_int
+        lib.fused_round_error_string.restype = ctypes.c_char_p
+        lib.fused_round_error_string.argtypes = [ctypes.c_int]
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+                       + [ctypes.c_int, ctypes.c_void_p])
+    return fn, lib.fused_round_error_string
 
 
 def _split(x: torch.Tensor, num_tiles: int) -> Tuple[int, int, int]:
@@ -191,4 +271,4 @@ def tile_apply(op: Op, local: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor
 
 def ensure_built() -> float:
     """Build the kernels if this process has not; returns the seconds spent."""
-    return _cuda.build([LIBRARY])
+    return _cuda.build([LIBRARY, FUSED_NAME])

@@ -12,7 +12,7 @@ import torch
 
 import repro_torch
 from repro_torch.core.deformation import compose_batched
-from repro_torch.core.engine import scan
+from repro_torch.core.engine import get_plan, scan
 from repro_torch.data.images import lattice_image, make_series
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels import lookback_scan as lb
@@ -23,6 +23,7 @@ from repro_torch.kernels._tiling import (
     lift_masked,
     pack_leaves,
     packed_op,
+    round_sources,
 )
 from repro_torch.kernels.op_table import KernelOpError
 from repro_torch.runtime import scheduler
@@ -331,3 +332,162 @@ def test_scan_kernels_refuse_what_they_do_not_carry(cuda):
     y = scan(lambda a, b: a + b, torch.ones(512, device=cuda))
     assert float(y[-1]) == 512.0
     assert launch_counts().get("lookback_scan", 0) == 0
+
+
+# ------------------------------------------- max entry, fused_round, pallas
+
+
+def _floats(n, d, device, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return torch.randn((n, d), generator=g).to(device)
+
+
+@pytest.mark.parametrize("n,t", [(1000, 1), (2**20, 16), (2**20, 256)])
+@pytest.mark.parametrize("d", [1, 4])
+def test_scan_kernels_max_are_exact(cuda, n, t, d):
+    x = _floats(n, d, cuda, seed=n + d)
+    got = lb.lookback_scan_cuda(torch.maximum, x, t)
+    want = lb.lookback_scan_reference(torch.maximum, x, t)
+    local, parts = ts.tile_local_scan_cuda(torch.maximum, x, t)
+    plocal, pparts = ts.tile_local_scan_reference(torch.maximum, x, t)
+    seeds = torch.cat([pparts[:1], torch.cummax(pparts, 0).values[:-1]])
+    out = ts.tile_apply_cuda(torch.maximum, plocal, seeds)
+    pout = ts.tile_apply_reference(torch.maximum, plocal, seeds)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(local, plocal) and torch.equal(parts, pparts)
+    assert torch.equal(out, pout)
+    assert torch.equal(got[0], torch.cummax(x, 0).values)
+
+
+def test_max_kernel_propagates_nan(cuda):
+    x = _floats(4096, 2, cuda, seed=1)
+    x[100, 0] = float("nan")
+    x[3000, 1] = float("nan")
+    got = lb.lookback_scan_cuda(torch.maximum, x, 4)[0]
+    want = lb.lookback_scan_reference(torch.maximum, x, 4)[0]
+    src = torch.as_tensor(round_sources(get_plan("sklansky", 4096).rounds[0],
+                                        4096), device=cuda)
+    fk = ts.fused_round_cuda(torch.maximum, x, src)
+    fp = ts.fused_round_reference(torch.maximum, x, src)
+    torch.cuda.synchronize()
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+    assert bool(got[100:, 0].isnan().all()) and bool(got[3000:, 1].isnan().all())
+    assert torch.equal(fk.isnan(), fp.isnan())
+    assert torch.equal(fk.nan_to_num(), fp.nan_to_num())
+
+
+def _plan(alg, n, masked):
+    mask = [i % 7 == 3 or i < 5 for i in range(n)] if masked else None
+    return get_plan(alg, n, mask=mask)
+
+
+# Every circuit at each size it has a plan for (Blelloch: powers of two,
+# unmasked; the sequential plan only small: it has n - 1 rounds).
+ROUND_CASES = [
+    (alg, n, case)
+    for alg in ("sklansky", "brent_kung", "ladner_fischer", "dissemination",
+                "blelloch", "sequential")
+    for n in (17, 1024, 2**16)
+    for case in ("add1", "add4", "max1", "max3", "add1_masked")
+    if not (alg == "sequential" and n > 1024)
+    and not (alg == "blelloch" and (n == 17 or case.endswith("masked")))
+]
+
+
+@pytest.mark.parametrize("alg,n,case", ROUND_CASES)
+def test_fused_round_kernel_matches_plain_round_by_round(cuda, alg, n, case):
+    op = torch.add if case.startswith("add") else torch.maximum
+    d = int(case[3])
+    plan = _plan(alg, n, case.endswith("masked"))
+    x = (_ints if op is torch.add else _floats)(n, d, cuda, seed=n + d)
+    y = x
+    launches = 0
+    for rnd in plan.rounds:
+        src = round_sources(rnd, n)
+        if src is None:
+            continue
+        src = torch.as_tensor(src, device=cuda)
+        got = ts.fused_round_cuda(op, y, src)
+        want = ts.fused_round_reference(op, y, src)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), rnd
+        y = got
+        launches += 1
+    assert launches == sum(1 for r in plan.rounds
+                           if r.num_combines or r.num_moves)
+
+
+def test_fused_round_rigid_matches_plain_and_float64(cuda):
+    n = 4096
+    dfm = _deformations(n, cuda, seed=3)
+    a64, s64 = _chain64(dfm)
+    x2, spec = pack_leaves(dfm)
+    op = packed_op(compose_batched, spec)
+    tol = _rigid_tol(s64)
+    y = x2
+    for rnd in get_plan("ladner_fischer", n).rounds:
+        src = torch.as_tensor(round_sources(rnd, n), device=cuda)
+        got = ts.fused_round_cuda(op, y, src)
+        want = ts.fused_round_reference(op, y, src)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **tol)
+        y = got
+    np.testing.assert_allclose(y[:, 0].double().cpu().numpy(), a64, **tol)
+    np.testing.assert_allclose(y[:, 1:].double().cpu().numpy(), s64, **tol)
+
+
+@pytest.mark.parametrize("alg", ["sklansky", "brent_kung", "ladner_fischer",
+                                 "dissemination", "blelloch"])
+@pytest.mark.parametrize("n", [1000, 2**16])
+def test_pallas_rounds_on_card_launch_fused_round_each_round(cuda, alg, n):
+    x = _ints(n, 1, cuda, seed=n)[:, 0]
+    f = _floats(n, 1, cuda, seed=n)[:, 0]
+    m = 1 << (n - 1).bit_length() if alg == "blelloch" else n
+    rounds = sum(1 for r in get_plan(alg, m, n_valid=n if m != n else None).rounds
+                 if r.num_combines or r.num_moves)
+    reset_launch_counts()
+    y = scan(torch.add, x, backend="pallas", algorithm=alg)
+    assert launch_counts()["fused_round"] == rounds
+    assert torch.equal(y, torch.cumsum(x.double(), 0).float())
+    assert torch.equal(scan(torch.maximum, f, backend="pallas", algorithm=alg),
+                       torch.cummax(f, 0).values)
+    if alg != "blelloch":
+        valid = (torch.arange(n, device=cuda) % 7) != 3
+        valid[:5] = False
+        want = torch.cumsum(torch.where(valid, x, 0.0).double(), 0).float()
+        want[:5] = x[:5]
+        got = scan(torch.add, x, backend="pallas", algorithm=alg, where=valid)
+        assert torch.equal(got, want)
+    counts = launch_counts()
+    assert counts.get("lookback_scan", 0) == counts.get("tile_apply", 0) == 0
+
+
+@pytest.mark.parametrize("tiles", [16, 4096])
+def test_pallas_tiles_on_card_launch_the_tile_kernels(cuda, tiles):
+    n = 2**22
+    x = _ints(n, 1, cuda, seed=tiles)[:, 0]
+    f = _floats(n, 1, cuda, seed=tiles)[:, 0]
+    reset_launch_counts()
+    y = scan(torch.add, x, backend="pallas", num_blocks=tiles)
+    assert torch.equal(y, torch.cumsum(x.double(), 0).float())
+    counts = {k: v for k, v in launch_counts().items() if v}
+    assert counts == {"tile_local_scan": 1, "tile_apply": 1}
+    ym = scan(torch.maximum, f, backend="pallas", num_blocks=tiles)
+    assert torch.equal(ym, torch.cummax(f, 0).values)
+
+
+def test_pallas_on_card_refuses_before_any_launch(cuda):
+    x = torch.ones(64, device=cuda)
+    reset_launch_counts()
+    for kw in ({}, {"num_blocks": 4}):
+        with pytest.raises(KernelOpError, match="rigid_compose"):
+            scan(lambda a, b: a + b, x, backend="pallas", **kw)
+        with pytest.raises(KernelOpError, match="float32"):
+            scan(torch.add, x.double(), backend="pallas", **kw)
+        with pytest.raises(KernelOpError):
+            scan(torch.add, torch.ones((64, 5), device=cuda), backend="pallas",
+                 **kw)
+    assert not any(launch_counts().values())

@@ -226,3 +226,31 @@ def test_packed_and_lifted_ops_keep_the_entry():
 def test_check_kernel_row_raises_naming_the_table(op, d, masked):
     with pytest.raises(KernelOpError, match="rigid_compose"):
         check_kernel_row(op, d, masked)
+
+
+def test_max_is_a_table_entry():
+    assert kernel_op_of(torch.maximum) == "max"
+    tagged = lambda a, b: torch.maximum(a, b)  # noqa: E731
+    tagged.kernel_op = "max"
+    assert kernel_op_of(tagged) == "max"
+    assert kernel_op_of(torch.max) is None     # reduces, not the lane max
+    assert kernel_op_for(torch.maximum, torch.zeros(5, 4)) == "max"
+    assert kernel_op_for(torch.maximum, torch.zeros(5, 5)) is None
+    assert check_kernel_row(tt.lift_masked(torch.maximum), 2, masked=True) == "max"
+    with pytest.raises(KernelOpError, match="max"):
+        check_kernel_row(torch.maximum, 5)
+
+
+@pytest.mark.parametrize("alg", ["ladner_fischer", "dissemination", "blelloch"])
+def test_round_sources_write_every_row_once(alg):
+    n = 16
+    for rnd in get_plan(alg, n).rounds:
+        src = tt.round_sources(rnd, n)
+        if src is None:
+            assert rnd.num_combines == rnd.num_moves == 0
+            continue
+        comb = src[:, 1] >= 0
+        assert comb.sum() == rnd.num_combines
+        moved = ~comb & (src[:, 0] != np.arange(n))
+        assert moved.sum() <= rnd.num_moves
+        assert ((src >= -1) & (src < n)).all() and (src[:, 0] >= 0).all()
