@@ -24,19 +24,30 @@ kernels' launch counts zeroed just before it and read just after:
   ``tile_apply``); and ``backend="pallas"``: rounds mode at n = 2^16
   (Ladner-Fischer plain and masked, Blelloch; one ``fused_round`` launch a
   non-empty round) and tiles mode at 2^24 (add over 16 tiles, max over
-  4096; one ``tile_local_scan`` and one ``tile_apply`` launch).
+  4096; one ``tile_local_scan`` and one ``tile_apply`` launch);
+* ``lm_serve``: ``repro_torch.launch.serve.Server`` serving Zamba2-7B at full
+  width and depth (81 layers, bf16, seeded random weights on the card) with
+  the kernel backends passed in through ``acfg``: 4 requests (three 512-token
+  prompts, one of 300 left-padded), 16 new tokens each; prefill launches
+  ``chunk_local`` and ``chunk_apply`` 54 times each and ``flash_attention``
+  27 times, decode none; the same prefill through the "xla" backends is
+  compared as a finding;
+* ``lm_check``: Zamba2-7B at full width and 3 superblocks in float32, batch 2,
+  prompt 512: logits through the kernels against the "xla" path, within 2e-2.
 
 Output, one line each: ``env``, ``build``, ``kernel warp_ncc``,
 ``kernel lookback_scan``, ``kernel tile_local_scan``, ``kernel tile_apply``,
-``kernel fused_round``, ``series``, ``series_hier``, ``series_compose``,
-``scan_engine``, ``kernels`` (JSON), the card's name and power limit, and last
-``{"ok": true, "device": {...}}``.  Any failed phase raises and the script
-exits non-zero; without a CUDA device it exits 2 and prints no result.
+``kernel fused_round``, ``kernel chunk_local``, ``kernel chunk_apply``,
+``kernel flash_attention``, ``series``, ``series_hier``, ``series_compose``,
+``scan_engine``, ``lm_serve``, ``lm_check``, ``kernels`` (JSON), the card's
+name and power limit, and last ``{"ok": true, "device": {...}}``.  Any
+failed phase raises and the script exits non-zero; without a CUDA device it
+exits 2 and prints no result.
 
-``--cpu-rehearsal`` runs the series, compose and engine phases on the CPU at
-small sizes with the kernels' plain versions, to rehearse the script's flow
-without a card; it skips the kernel phases and exits 3 without a result
-line.
+``--cpu-rehearsal`` runs the series, compose, engine and LM phases on the CPU
+at small sizes (the LM phases on Zamba2's smoke config) with the kernels'
+plain versions, to rehearse the script's flow without a card; it skips the
+kernel phases and exits 3 without a result line.
 """
 
 from __future__ import annotations
@@ -56,6 +67,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # Card peaks for the bounds (NVIDIA H100 SXM data sheet, at its 700 W limit).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12   # dense tensor-core rate
 FULL_POWER_W = 700.0
 
 SIZE = 1920
@@ -204,11 +216,12 @@ def check_warp_ncc(device, power_w: float) -> dict:
     }
 
 
-def _bound(nbytes: float, ops: float) -> dict:
+def _bound(nbytes: float, ops: float, peak_ops: float = PEAK_F32_FLOPS) -> dict:
     """The least time the card could take: bytes over the memory rate or
-    operations over the f32 rate, whichever is larger."""
+    operations over the operands' peak rate (f32 unless given), whichever
+    is larger."""
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = ops / PEAK_F32_FLOPS * 1e3
+    ops_ms = ops / peak_ops * 1e3
     return {"bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
@@ -876,6 +889,465 @@ def run_scan_engine(device, n: int, series_len: int, rounds_n: int) -> dict:
     return out
 
 
+# The LM serving slice: Zamba2-7B at full width (ArchConfig of
+# src/repro_torch/configs/zamba2_7b.py), batch 4, prompts of 512 tokens
+# (chunk 128), so the chunk kernels run at G = 4 * 112 * 4 and flash
+# attention at BH = 4 * 32, L = 512, d = 112.
+LM_BATCH = 4
+LM_PROMPT = 512
+LM_SHORT_PROMPT = 300        # left-padded to LM_PROMPT
+LM_MAX_NEW = 16
+LM_MAX_LEN = 1024            # >= prompt + max_new: decode drops later writes
+LM_CHECK_LAYERS = 9          # lm_check: 3 superblocks in float32
+LM_CHECK_TOL = 2e-2          # tests/test_models.py:99 (prefill logits)
+# Kernel checks against the plain versions on the card: float32 at the
+# reference's kernel-oracle tolerance (tests/test_kernels.py:58-74, :105).
+# In bfloat16 kernel and plain version both accumulate in float32 and round
+# once, so they may differ by one bf16 step (at most 2^-7 of the value):
+# rtol 8e-3 with atol 1e-3.  Typical outputs are 0.02-0.5, so an error of a
+# few percent of the value fails.
+BF16_TOL = (8e-3, 1e-3)
+CHUNK_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: BF16_TOL}
+STATE_TOL = (1e-4, 1e-4)     # the float32 state summaries, both dtypes
+FLASH_TOL = {torch.float32: (2e-3, 2e-3), torch.bfloat16: BF16_TOL}
+
+
+def _lm_shapes():
+    from repro_torch.configs import get_config
+
+    cfg = get_config("zamba2-7b")
+    chunk = min(cfg.ssm_chunk, LM_PROMPT)
+    g = LM_BATCH * cfg.ssm_heads * (LM_PROMPT // chunk)
+    return cfg, g, chunk
+
+
+def _chunk_inputs(g, l, dk, dv, dtype, device, seed, log_a_shift=0.0):
+    """The reference's kernel-test inputs (tests/test_kernels.py): c, b
+    ~0.3 N(0, 1), v ~0.5 N(0, 1), ca a cumulative sum of
+    -softplus(N + log_a_shift).  The shift 0 decays ~0.8 a step, so weights
+    vanish ~15 positions below the diagonal; -2 decays ~0.18 a step, as
+    Mamba2's dt bias of -2 does, and keeps the far terms and the whole
+    state summary in play."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rn = lambda *shape: torch.randn(shape, generator=gen, device=device)
+    c = (rn(g, l, dk) * 0.3).to(dtype)
+    b = (rn(g, l, dk) * 0.3).to(dtype)
+    v = (rn(g, l, dv) * 0.5).to(dtype)
+    log_a = -torch.nn.functional.softplus(rn(g, l) + log_a_shift)
+    ca = torch.cumsum(log_a, -1)[..., None]
+    return c, b, v, ca
+
+
+def _close_to(got, want, rtol, atol, what) -> float:
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol):
+        raise AssertionError(f"{what}: kernel and plain version disagree "
+                             f"(max abs err {err}, rtol {rtol}, atol {atol})")
+    return err
+
+
+def _check_chunk_slow_decay(cs, g, l, dk, dv, device) -> dict:
+    """Both kernels against their plain versions on slowly decaying inputs
+    (log_a_shift -2), bf16 and float32, at the tolerances of the timed
+    case; returns the largest errors."""
+    errs = {}
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        c, b, v, ca = _chunk_inputs(g, l, dk, dv, dtype, device, seed=23,
+                                    log_a_shift=-2.0)
+        y_k, s_k = cs.chunk_local_cuda(c, b, v, ca)
+        y_p, s_p = cs.chunk_local_reference(c, b, v, ca)
+        gen = torch.Generator(device=device).manual_seed(24)
+        s_prev = torch.randn((g, dk, dv), generator=gen, device=device)
+        o_k = cs.chunk_apply_cuda(c, ca, y_p, s_prev)
+        o_p = cs.chunk_apply_reference(c, ca, y_p, s_prev)
+        torch.cuda.synchronize()
+        rtol, atol = CHUNK_TOL[dtype]
+        errs[tag] = {
+            "y_intra": _close_to(y_k, y_p, rtol, atol,
+                                 f"chunk_local y_intra {tag} slow decay"),
+            "state": _close_to(s_k, s_p, *STATE_TOL,
+                               f"chunk_local state {tag} slow decay"),
+            "chunk_apply": _close_to(o_k, o_p, rtol, max(atol, 1e-4),
+                                     f"chunk_apply {tag} slow decay"),
+            "max_abs_y_intra": float(y_p.float().abs().max()),
+            "ca_end_mean": float(ca[:, -1].mean()),
+        }
+    return errs
+
+
+def check_chunk_kernels(device) -> tuple:
+    """chunk_local and chunk_apply against their plain versions at the
+    serving path's shape (G = 1792, L = 128, dk = dv = 64), bf16 (the
+    path's dtype, timed) and float32, on the reference's fast-decaying
+    inputs and on slowly decaying ones."""
+    from repro_torch.kernels import chunk_scan as cs
+
+    cfg, g, l = _lm_shapes()
+    dk, dv = cfg.ssm_state, cfg.ssm_head_dim
+    slow = _check_chunk_slow_decay(cs, g, l, dk, dv, device)
+    local, apply = {}, {}
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        c, b, v, ca = _chunk_inputs(g, l, dk, dv, dtype, device, seed=20)
+        y_k, s_k = cs.chunk_local_cuda(c, b, v, ca)
+        y_p, s_p = cs.chunk_local_reference(c, b, v, ca)
+        torch.cuda.synchronize()
+        rtol, atol = CHUNK_TOL[dtype]
+        err_y = _close_to(y_k, y_p, rtol, atol, f"chunk_local y_intra {tag}")
+        err_s = _close_to(s_k, s_p, *STATE_TOL, f"chunk_local state {tag}")
+        gen = torch.Generator(device=device).manual_seed(21)
+        s_prev = torch.randn((g, dk, dv), generator=gen, device=device)
+        o_k = cs.chunk_apply_cuda(c, ca, y_p, s_prev)
+        o_p = cs.chunk_apply_reference(c, ca, y_p, s_prev)
+        torch.cuda.synchronize()
+        err_o = _close_to(o_k, o_p, rtol, max(atol, 1e-4), f"chunk_apply {tag}")
+        esz = c.element_size()
+        tri = l * (l + 1) // 2                 # causal (t, s) pairs
+        local_bytes = 3 * g * l * dk * esz + g * l * 4 + g * l * dv * esz \
+            + g * dk * dv * 4
+        local_ops = g * (2 * tri * dk + 2 * tri * dv + 2 * l * dk * dv)
+        apply_bytes = g * l * dk * esz + g * l * 4 + 2 * g * l * dv * esz \
+            + g * dk * dv * 4
+        apply_ops = g * 2 * l * dk * dv
+        peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+        local[tag] = {
+            "max_abs_err": err_y, "max_abs_err_state": err_s,
+            "mean_abs_out": float(y_p.float().abs().mean()),
+            "ms": _time_ms(lambda: cs.chunk_local_cuda(c, b, v, ca)),
+            "plain_ms": _time_ms(lambda: cs.chunk_local_reference(c, b, v, ca),
+                                 reps=10),
+            **_bound(local_bytes, local_ops, peak),
+            "bytes": local_bytes, "flops": local_ops,
+        }
+        apply[tag] = {
+            "max_abs_err": err_o,
+            "ms": _time_ms(lambda: cs.chunk_apply_cuda(c, ca, y_p, s_prev)),
+            "plain_ms": _time_ms(
+                lambda: cs.chunk_apply_reference(c, ca, y_p, s_prev), reps=10),
+            **_bound(apply_bytes, apply_ops, peak),
+            "bytes": apply_bytes, "flops": apply_ops,
+        }
+        del c, b, v, ca, y_k, s_k, y_p, s_p, o_k, o_p, s_prev
+
+    def line(name, replaces, rows):
+        head = rows["bf16"]
+        return {
+            "name": name, "route": "cuda", "source": cs.SOURCE,
+            "replaces": replaces, "shape": [g, l, dk, dv], "dtype": "bf16",
+            "max_abs_err": head["max_abs_err"], "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": None,
+            "f32": rows["f32"], "bf16": rows["bf16"],
+            "slow_decay_max_abs_err": slow,
+        }
+
+    return (line(cs.LOCAL_NAME, cs.LOCAL_REPLACES, local),
+            line(cs.APPLY_NAME, cs.APPLY_REPLACES, apply))
+
+
+def check_flash_attention(device) -> dict:
+    """flash_attention against its plain version at the serving path's
+    shape (BH = 128, L = 512, d = 112), bf16 (timed) and float32, causal and
+    not, at two accepted block choices; SDPA timed beside it."""
+    from repro_torch.kernels import flash_attention as fa
+
+    cfg, _g, _l = _lm_shapes()
+    bh, l, d = LM_BATCH * cfg.n_heads, LM_PROMPT, cfg.hd
+    rows = {}
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        gen = torch.Generator(device=device).manual_seed(22)
+        q, k, v = ((torch.randn((bh, l, d), generator=gen, device=device)
+                    * 0.5).to(dtype) for _ in range(3))
+        err = 0.0
+        for causal in (True, False):
+            for blocks in ((256, 512), (128, 128)):
+                kw = {"causal": causal, "block_q": blocks[0],
+                      "block_k": blocks[1]}
+                o_k = fa.flash_attention_cuda(q, k, v, **kw)
+                o_p = fa.flash_attention_reference(q, k, v, **kw)
+                torch.cuda.synchronize()
+                err = max(err, _close_to(o_k, o_p, *FLASH_TOL[dtype],
+                                         f"flash_attention {tag} {kw}"))
+        q4, k4, v4 = (t.view(LM_BATCH, cfg.n_heads, l, d) for t in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        err_sdpa = float((fa.flash_attention_cuda(q, k, v).view_as(q4).float()
+                          - sdpa(q4, k4, v4, is_causal=True).float())
+                         .abs().max())
+        esz = q.element_size()
+        tri = l * (l + 1) // 2
+        nbytes = 4 * bh * l * d * esz
+        ops = bh * 4 * tri * d          # q k^T and p v over the causal pairs
+        peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+        mag = float(fa.flash_attention_reference(q, k, v).float().abs().mean())
+        rows[tag] = {
+            "max_abs_err": err, "max_abs_err_vs_sdpa": err_sdpa,
+            "mean_abs_out": mag,
+            "ms": _time_ms(lambda: fa.flash_attention_cuda(q, k, v)),
+            "plain_ms": _time_ms(lambda: fa.flash_attention_reference(q, k, v),
+                                 reps=10),
+            "library_ms": _time_ms(lambda: sdpa(q4, k4, v4, is_causal=True)),
+            **_bound(nbytes, ops, peak), "bytes": nbytes, "flops": ops,
+        }
+        del q, k, v, q4, k4, v4
+    head = rows["bf16"]
+    return {
+        "name": fa.NAME, "route": "cuda", "source": fa.SOURCE,
+        "replaces": fa.REPLACES, "shape": [bh, l, d], "dtype": "bf16",
+        "max_abs_err": head["max_abs_err"], "ms": head["ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+        "library_call": "F.scaled_dot_product_attention(q, k, v, "
+                        "is_causal=True) on (4, 32, 512, 112)",
+        "f32": rows["f32"], "bf16": rows["bf16"],
+    }
+
+
+def _lm_config(smoke: bool, **kw):
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config, get_smoke_config
+
+    cfg = (get_smoke_config if smoke else get_config)("zamba2-7b")
+    return replace(cfg, **kw)
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _logit_gap(a, b) -> dict:
+    a, b = a.float(), b.float()
+    return {"max_abs_gap": float((a - b).abs().max()),
+            "max_abs_logit": float(b.abs().max()),
+            "top1_agree": float((a.argmax(-1) == b.argmax(-1)).float().mean())}
+
+
+def run_lm_serve(device, smoke: bool = False) -> dict:
+    """``repro_torch.launch.serve.Server`` on Zamba2-7B, the kernel backends
+    passed in through ``acfg``: 4 requests (three 512-token prompts, one of
+    300 left-padded to 512), 16 new tokens each, bf16 weights from a seeded
+    generator on the device.  Launch counts are read around the prefill and
+    around the decode; the same prefill through the "xla" backends is
+    compared as a finding."""
+    from repro_torch.core._tree import tensor_leaves
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import Request, ServeConfig, Server
+    from repro_torch.models import lm
+
+    cfg = _lm_config(smoke, attn_backend="pallas",
+                     ssm_backend="pallas")
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    srv = Server(ServeConfig(arch="zamba2-7b", smoke=smoke,
+                             max_batch=LM_BATCH, max_len=LM_MAX_LEN,
+                             eos_id=None), device=device, acfg=cfg)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tensor_leaves(srv.params))
+
+    seen = {"logits": [], "batch": None, "prefill": None}
+    prefill_step, decode_step = srv._prefill, srv._decode
+
+    def prefill(params, batch, states):
+        seen["batch"] = batch
+        _sync(device)
+        reset_launch_counts()
+        out = prefill_step(params, batch, states)
+        _sync(device)
+        seen["prefill"] = {k: v for k, v in launch_counts().items() if v}
+        reset_launch_counts()
+        seen["logits"].append(out[0])
+        return out
+
+    def decode(params, tok, pos, states):
+        out = decode_step(params, tok, pos, states)
+        seen["logits"].append(out[0])
+        return out
+
+    srv._prefill, srv._decode = prefill, decode
+    rng = np.random.default_rng(0)
+    runs = []
+    for _ in range(2):   # the first run is the counted one; both are checked
+        reqs = [Request(i, rng.integers(2, cfg.vocab_size, n, dtype=np.int32),
+                        max_new=LM_MAX_NEW)
+                for i, n in enumerate([LM_PROMPT] * (LM_BATCH - 1)
+                                      + [LM_SHORT_PROMPT])]
+        seen["logits"].clear()
+        reset_launch_counts()
+        stats = srv.serve_batch(reqs)
+        decode_counts = {k: v for k, v in launch_counts().items() if v}
+        bad = [i for i, lg in enumerate(seen["logits"])
+               if not bool(torch.isfinite(lg).all())]
+        if bad:
+            raise AssertionError(f"lm_serve: non-finite logits in steps {bad}")
+        if not all(len(r.output) == LM_MAX_NEW for r in reqs):
+            raise AssertionError("lm_serve: a request got the wrong length")
+        runs.append({**stats, "prefill_launches": seen["prefill"],
+                     "decode_launches": decode_counts,
+                     "outputs_head": [r.output[:4] for r in reqs]})
+    peak_memory = torch.cuda.max_memory_allocated(device) if on_card else None
+    want = {"chunk_local": 2 * cfg.n_super, "chunk_apply": 2 * cfg.n_super,
+            "flash_attention": cfg.n_super}
+    if on_card:
+        for run in runs:
+            if run["prefill_launches"] != want or run["decode_launches"]:
+                raise AssertionError(
+                    f"lm_serve launches: prefill {run['prefill_launches']} "
+                    f"(want {want}), decode {run['decode_launches']} (want none)")
+
+    # Where the time of one prefill and one decode step goes on the card.
+    profile = None
+    if on_card:
+        profile = {}
+        states = lm.init_decode_states(cfg, LM_BATCH, LM_MAX_LEN, device=device)
+        with torch.no_grad():
+            profile["prefill"], (logits, states) = _profile(
+                device, lambda: lm.prefill(srv.params, cfg, seen["batch"],
+                                           states))
+            tok = torch.argmax(logits[:, -1], -1)[:, None]
+            profile["decode_step"], _ = _profile(
+                device, lambda: lm.decode_step(srv.params, cfg, tok,
+                                               LM_PROMPT, states))
+        del states, logits
+
+    # The same prefill through the plain "xla" backends: a finding.
+    xcfg = _lm_config(smoke, attn_backend="xla", ssm_backend="xla")
+    states = lm.init_decode_states(xcfg, LM_BATCH, LM_MAX_LEN, device=device)
+    with torch.no_grad():
+        xl, _ = lm.prefill(srv.params, xcfg, seen["batch"], states)
+    del states
+    gap = _logit_gap(seen["logits"][0], xl)
+    out = {
+        "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "params": n_params, "param_count_analytic": cfg.param_count(),
+        "dtype": cfg.param_dtype, "batch": LM_BATCH,
+        "prompts": [LM_PROMPT] * (LM_BATCH - 1) + [LM_SHORT_PROMPT],
+        "max_new": LM_MAX_NEW, "max_len": LM_MAX_LEN, "init_s": init_s,
+        "prefill_s": runs[0]["prefill_s"], "decode_s": runs[0]["decode_s"],
+        "tokens_per_s": runs[0]["tokens_per_s"],
+        "prefill_launches": runs[0]["prefill_launches"],
+        "decode_launches": runs[0]["decode_launches"],
+        "second_run": {k: runs[1][k] for k in
+                       ("prefill_s", "decode_s", "tokens_per_s",
+                        "prefill_launches", "decode_launches")},
+        "outputs_head": runs[0]["outputs_head"],
+        "prefill_vs_xla": gap,
+        "max_memory_allocated": peak_memory,   # over the two serves
+        "profile": profile,
+    }
+    del srv, seen
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+_KERNEL_GROUPS = (("chunk_local", "chunk_local_kernel"),
+                  ("chunk_apply", "chunk_apply_kernel"),
+                  ("flash_attention", "flash_kernel"))
+
+
+def _kernel_group(name: str) -> str:
+    for group, key in _KERNEL_GROUPS:
+        if key in name:
+            return group
+    low = name.lower()
+    # cuBLAS's kernels: "nvjet_*" (its JIT kernels on Hopper), gemm, gemv.
+    if any(key in low for key in ("nvjet", "gemm", "gemv", "xmma", "cutlass")):
+        return "matmul (cuBLAS)"
+    return "other (elementwise, copies, reductions)"
+
+
+def _profile(device, fn) -> tuple:
+    """``fn()`` once under ``torch.profiler``: its wall ms, the device's
+    kernel ms by group and the top kernels, and the device's idle share of
+    the wall time (1 - kernel time / wall time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups, kernels, launches = {}, [], 0
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", 0.0)
+        g = _kernel_group(e.key)
+        groups[g] = groups.get(g, 0.0) + us / 1e3
+        kernels.append((us / 1e3, e.count, e.key[:80]))
+        launches += e.count
+    device_ms = sum(groups.values())
+    kernels.sort(reverse=True)
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "device_idle_share": (1.0 - device_ms / wall_ms) if wall_ms else None,
+            "device_launches": launches, "device_ms_by_group": groups,
+            "top_kernels": [{"ms": ms, "count": n, "name": k}
+                            for ms, n, k in kernels[:8]]}, out
+
+
+def run_lm_check(device, smoke: bool = False) -> dict:
+    """Zamba2-7B at full width and 3 superblocks in float32, batch 2,
+    prompt 512: prefill logits (and the teacher-forced logits of every
+    position) through the kernels against the "xla" path, gated at
+    LM_CHECK_TOL."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import lm
+
+    layers = None if smoke else LM_CHECK_LAYERS
+    kw = dict(param_dtype="float32", compute_dtype="float32",
+              cache_dtype="float32")
+    if layers:
+        kw["n_layers"] = layers
+    cfg = _lm_config(smoke, attn_backend="pallas",
+                     ssm_backend="pallas", **kw)
+    xcfg = _lm_config(smoke, attn_backend="xla", ssm_backend="xla",
+                      **kw)
+    params = lm.init_params(torch.Generator(device=device).manual_seed(1), cfg)
+    rng = np.random.default_rng(1)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, LM_PROMPT)),
+                             dtype=torch.long, device=device)
+    batch = {"tokens": tokens}
+    with torch.no_grad():
+        _sync(device)
+        reset_launch_counts()
+        lk, _ = lm.prefill(params, cfg, batch,
+                           lm.init_decode_states(cfg, 2, LM_PROMPT, device))
+        _sync(device)
+        counts = {k: v for k, v in launch_counts().items() if v}
+        lx, _ = lm.prefill(params, xcfg, batch,
+                           lm.init_decode_states(xcfg, 2, LM_PROMPT, device))
+        fk, _ = lm.forward_train(params, cfg, batch)
+        fx, _ = lm.forward_train(params, xcfg, batch)
+    if device.type == "cuda":
+        want = {"chunk_local": 2 * cfg.n_super, "chunk_apply": 2 * cfg.n_super,
+                "flash_attention": cfg.n_super}
+        if counts != want:
+            raise AssertionError(f"lm_check launches {counts}, want {want}")
+    for got, ref, what in ((lk, lx, "prefill"), (fk, fx, "forward")):
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"lm_check: non-finite {what} logits")
+        if not torch.allclose(got, ref, rtol=LM_CHECK_TOL, atol=LM_CHECK_TOL):
+            raise AssertionError(
+                f"lm_check {what}: kernels vs xla gap "
+                f"{float((got - ref).abs().max())} > {LM_CHECK_TOL}")
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "dtype": "float32", "batch": 2, "prompt": LM_PROMPT,
+           "tol": LM_CHECK_TOL, "prefill_launches": counts,
+           "prefill_vs_xla": _logit_gap(lk, lx),
+           "forward_vs_xla": _logit_gap(fk, fx)}
+    del params, lk, lx, fk, fx
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
 def _close_pool() -> None:
     """Stop the shared worker pool and wait for its threads, so none is
     alive while PyTorch tears down at exit."""
@@ -889,8 +1361,9 @@ def _close_pool() -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run the series phases on the CPU at 96x96 with "
-                         "the plain kernels; exits 3 with no result line")
+                    help="run the series, engine and LM phases on the CPU at "
+                         "small sizes with the plain kernels; exits 3 with no "
+                         "result line")
     args = ap.parse_args()
 
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -905,6 +1378,8 @@ def main() -> int:
             num_threads=2))
         _line("series_compose", run_series_compose(dev, 17, 64))
         _line("scan_engine", run_scan_engine(dev, 1 << 12, 256, 1 << 10))
+        _line("lm_serve", run_lm_serve(dev, smoke=True))
+        _line("lm_check", run_lm_check(dev, smoke=True))
         _close_pool()
         print("cpu rehearsal: no result", file=sys.stderr)
         return 3
@@ -924,7 +1399,8 @@ def main() -> int:
         "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
     })
 
-    libraries = ["warp_ncc", "lookback_scan", "tile_scan", "fused_round"]
+    libraries = ["warp_ncc", "lookback_scan", "tile_scan", "fused_round",
+                 "chunk_scan", "flash_attention"]
     secs = _cuda.build(libraries)
     ptxas = {name: [ln.strip() for ln in _cuda.build_log(name).splitlines()
                     if "registers" in ln or "spill" in ln]
@@ -940,6 +1416,11 @@ def main() -> int:
     _line("kernel tile_apply", kt_apply)
     kf = check_fused_round(dev)
     _line("kernel fused_round", kf)
+    kc_local, kc_apply = check_chunk_kernels(dev)
+    _line("kernel chunk_local", kc_local)
+    _line("kernel chunk_apply", kc_apply)
+    kfa = check_flash_attention(dev)
+    _line("kernel flash_attention", kfa)
 
     series = run_series(dev, 33, SIZE)
     _line("series", series)
@@ -950,6 +1431,10 @@ def main() -> int:
     _line("series_compose", compose)
     engine = run_scan_engine(dev, SCAN_N, SERIES_LEN, ROUNDS_N)
     _line("scan_engine", engine)
+    serve = run_lm_serve(dev)
+    _line("lm_serve", serve)
+    check = run_lm_check(dev)
+    _line("lm_check", check)
 
     k["launches"] = series["warp_ncc_launches"]
     k["launches_series_hier"] = hier["warp_ncc_launches"]
@@ -963,11 +1448,14 @@ def main() -> int:
     for kt in (kt_local, kt_apply, kf):
         kt["launches"] = kt["launches_scan_engine"] = engine_launches.get(
             kt["name"], 0)
+    for kt in (kc_local, kc_apply, kfa):
+        kt["launches"] = serve["prefill_launches"].get(kt["name"], 0)
+        kt["launches_lm_check"] = check["prefill_launches"].get(kt["name"], 0)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     rows = []
-    for entry in (k, kl, kt_local, kt_apply, kf):
+    for entry in (k, kl, kt_local, kt_apply, kf, kc_local, kc_apply, kfa):
         if not entry["launches"] >= 1:
             raise AssertionError(f"{entry['name']} was never launched on "
                                  "the main path")

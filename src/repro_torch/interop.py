@@ -59,3 +59,25 @@ def registration_config(fields: Mapping[str, Any]) -> RegistrationConfig:
     if unknown:
         raise ValueError(f"unknown RegistrationConfig fields: {sorted(unknown)}")
     return RegistrationConfig(**dict(fields))
+
+
+def params_from_numpy(tree: Any, device: DeviceLike = "cpu",
+                      dtype: torch.dtype = None) -> Any:
+    """A parameter tree given as numpy (the reference's ``lm.init_params``
+    through ``jax.device_get``) as the port's tensors, leaf for leaf.
+
+    Each leaf keeps its dtype (numpy has no bfloat16: ml_dtypes' bfloat16
+    arrays are carried as float32 and cast back) unless ``dtype`` is given,
+    which applies to every floating leaf."""
+    def leaf(x):
+        arr = np.asarray(x)
+        want = dtype
+        if arr.dtype.name == "bfloat16":
+            arr = arr.astype(np.float32)
+            want = want or torch.bfloat16
+        t = torch.as_tensor(np.array(arr), device=device)
+        if want is not None and t.is_floating_point():
+            t = t.to(want)
+        return t
+
+    return tree_map(leaf, tree)

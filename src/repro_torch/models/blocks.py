@@ -1,0 +1,115 @@
+"""Block assembly: pre-norm residual blocks of each kind + state plumbing
+(port of ``repro/models/blocks.py``).
+
+Ported kinds: ``attn``, ``shared_attn`` and ``mamba2``.  ``moe`` (and
+``moe.py``), ``mlstm``, ``slstm`` and cross-attention (``xattn``) come in
+later slices (``ROADMAP.md`` Queue 1 item 5) and raise until then.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Tuple
+
+import torch
+
+from .attention import (
+    attention_block,
+    attention_decode,
+    attention_prefill,
+    attn_init,
+    init_kv_cache,
+)
+from .config import ArchConfig
+from .layers import rmsnorm, rmsnorm_init, swiglu, swiglu_init
+from .ssm import (
+    mamba2_apply,
+    mamba2_decode,
+    mamba2_init,
+    mamba2_prefill,
+    mamba2_state_init,
+)
+
+_UNPORTED_KINDS = ("moe", "mlstm", "slstm")
+
+
+def _not_ported(what: str):
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md Queue 1 item 5)"
+    )
+
+
+def block_init(gen, cfg: ArchConfig, kind: str, *, cross: bool = False):
+    d = cfg.d_model
+    if cross:
+        raise _not_ported("cross-attention (xattn) blocks")
+    if kind in ("attn", "shared_attn"):
+        return {
+            "ln1": rmsnorm_init(d, cfg.pdtype, gen.device),
+            "attn": attn_init(gen, cfg),
+            "ln2": rmsnorm_init(d, cfg.pdtype, gen.device),
+            "mlp": swiglu_init(gen, d, cfg.d_ff, cfg.pdtype),
+        }
+    if kind == "mamba2":
+        return {"ln1": rmsnorm_init(d, cfg.pdtype, gen.device),
+                "mixer": mamba2_init(gen, cfg)}
+    if kind in _UNPORTED_KINDS:
+        raise _not_ported(f"the {kind!r} block")
+    raise ValueError(f"unknown block kind {kind!r}")
+
+
+def block_state_init(cfg: ArchConfig, kind: str, batch: int, max_len: int,
+                     device=None):
+    """Decode-time state for one block instance."""
+    if kind in ("attn", "shared_attn"):
+        return init_kv_cache(cfg, batch, max_len, device=device)
+    if kind == "mamba2":
+        return mamba2_state_init(cfg, batch, device=device)
+    if kind in _UNPORTED_KINDS:
+        raise _not_ported(f"the {kind!r} block")
+    raise ValueError(kind)
+
+
+def block_apply(
+    p,
+    cfg: ArchConfig,
+    kind: str,
+    x,
+    *,
+    positions=None,
+    mode: str = "train",
+    state=None,
+    pos=None,
+    enc_out=None,
+    seq_axes=None,
+) -> Tuple[torch.Tensor, Any, torch.Tensor]:
+    """Apply one block. Returns (x, new_state, aux_loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind in ("attn", "shared_attn"):
+        h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+        if mode == "train":
+            a = attention_block(p["attn"], cfg, h, positions)
+            new_state = None
+        elif mode == "prefill":
+            a, new_state = attention_prefill(p["attn"], cfg, h, positions, state)
+        elif mode == "decode":
+            a, new_state = attention_decode(p["attn"], cfg, h, pos, state)
+        else:
+            raise ValueError(mode)
+        x = x + a
+        if "xattn" in p and enc_out is not None:
+            raise _not_ported("cross-attention (xattn) blocks")
+        h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+        x = x + swiglu(p["mlp"], h)
+        return x, new_state, aux
+    if kind == "mamba2":
+        h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+        if mode == "train":
+            y, new_state = mamba2_apply(p["mixer"], cfg, h, seq_axes=seq_axes), None
+        elif mode == "prefill":
+            y, new_state = mamba2_prefill(p["mixer"], cfg, h, state)
+        else:
+            y, new_state = mamba2_decode(p["mixer"], cfg, h, state)
+        return x + y, new_state, aux
+    if kind in _UNPORTED_KINDS:
+        raise _not_ported(f"the {kind!r} block")
+    raise ValueError(kind)

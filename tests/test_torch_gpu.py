@@ -491,3 +491,159 @@ def test_pallas_on_card_refuses_before_any_launch(cuda):
             scan(torch.add, torch.ones((64, 5), device=cuda), backend="pallas",
                  **kw)
     assert not any(launch_counts().values())
+
+
+# ------------------------------------------------------------ LM kernels
+
+
+def _chunk_inputs(g, l, dk, dv, dtype, device, seed=0, log_a_shift=0.0):
+    """The reference's kernel-test inputs (tests/test_kernels.py): c, b
+    ~0.3 N(0, 1), v ~0.5 N(0, 1), ca a cumulative sum of
+    -softplus(N + log_a_shift).  A shift of -2 decays slowly (~0.18 a step,
+    as Mamba2's dt bias of -2 does), so terms far below the diagonal and the
+    whole state summary carry weight."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
+    c = t(rng.normal(size=(g, l, dk)) * 0.3).to(dtype)
+    b = t(rng.normal(size=(g, l, dk)) * 0.3).to(dtype)
+    v = t(rng.normal(size=(g, l, dv)) * 0.5).to(dtype)
+    la = -np.logaddexp(0.0, rng.normal(size=(g, l)) + log_a_shift)
+    ca = t(np.cumsum(la, axis=-1))[..., None]
+    return c, b, v, ca
+
+
+# Float32 at the reference's kernel-oracle tolerance (tests/test_kernels.py:
+# 58-74).  In bf16 kernel and plain version both accumulate in float32 and
+# round once, so they may differ by one bf16 step (at most 2^-7 of the
+# value): rtol 8e-3, atol 1e-3.
+_BF16_TOL = (8e-3, 1e-3)
+_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: _BF16_TOL}
+
+
+@pytest.mark.parametrize("g,l,dk,dv", [(1792, 128, 64, 64), (16, 128, 128, 128),
+                                       (6, 32, 16, 16), (5, 100, 112, 40)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("log_a_shift", [0.0, -2.0])
+def test_chunk_kernels_match_plain(cuda, g, l, dk, dv, dtype, log_a_shift):
+    from repro_torch.kernels import chunk_scan as cs
+
+    c, b, v, ca = _chunk_inputs(g, l, dk, dv, dtype, cuda,
+                                log_a_shift=log_a_shift)
+    y_k, s_k = cs.chunk_local_cuda(c, b, v, ca)
+    y_p, s_p = cs.chunk_local_reference(c, b, v, ca)
+    torch.cuda.synchronize()
+    assert y_k.dtype == dtype and s_k.dtype == torch.float32
+    rtol, atol = _TOL[dtype]
+    torch.testing.assert_close(y_k.float(), y_p.float(), rtol=rtol, atol=atol)
+    torch.testing.assert_close(s_k, s_p, rtol=1e-4, atol=1e-4)
+    rng = np.random.default_rng(1)
+    s_prev = torch.tensor(rng.normal(size=(g, dk, dv)), dtype=torch.float32,
+                          device=cuda)
+    o_k = cs.chunk_apply_cuda(c, ca, y_p, s_prev)
+    o_p = cs.chunk_apply_reference(c, ca, y_p, s_prev)
+    torch.cuda.synchronize()
+    assert o_k.dtype == dtype
+    torch.testing.assert_close(o_k.float(), o_p.float(), rtol=rtol,
+                               atol=max(atol, 1e-4))
+
+
+def test_chunk_kernels_refuse_what_they_do_not_take(cuda):
+    from repro_torch.kernels import chunk_scan as cs
+
+    c, b, v, ca = _chunk_inputs(4, 64, 16, 16, torch.float32, cuda)
+    reset_launch_counts()
+    with pytest.raises(TypeError):
+        cs.chunk_local(c.double(), b.double(), v.double(), ca)
+    with pytest.raises(TypeError):
+        cs.chunk_local(c, b, v, ca.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        cs.chunk_local(c.transpose(1, 2).contiguous().transpose(1, 2), b, v, ca)
+    big = _chunk_inputs(2, 256, 16, 16, torch.float32, cuda)
+    with pytest.raises(ValueError, match="chunk length"):
+        cs.chunk_local(*big)
+    odd = _chunk_inputs(2, 64, 12, 16, torch.float32, cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        cs.chunk_local(*odd)
+    assert not any(launch_counts().values())
+
+
+@pytest.mark.parametrize("bh,l,d,blocks", [(128, 512, 112, (256, 512)),
+                                           (8, 512, 112, (128, 128)),
+                                           (4, 256, 64, (128, 128)),
+                                           (3, 96, 128, (32, 96))])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(cuda, bh, l, d, blocks, causal,
+                                              dtype):
+    from repro_torch.kernels import flash_attention as fa
+
+    rng = np.random.default_rng(bh + l + d)
+    q, k, v = (torch.tensor(rng.normal(size=(bh, l, d)) * 0.5,
+                            dtype=torch.float32, device=cuda).to(dtype)
+               for _ in range(3))
+    o_k = fa.flash_attention_cuda(q, k, v, causal=causal, block_q=blocks[0],
+                                  block_k=blocks[1])
+    o_p = fa.flash_attention_reference(q, k, v, causal=causal,
+                                       block_q=blocks[0], block_k=blocks[1])
+    torch.cuda.synchronize()
+    assert o_k.dtype == dtype
+    # tests/test_kernels.py:105's 2e-3 in float32; one bf16 step in bf16.
+    rtol, atol = (2e-3, 2e-3) if dtype == torch.float32 else _BF16_TOL
+    torch.testing.assert_close(o_k.float(), o_p.float(), rtol=rtol, atol=atol)
+
+
+def test_flash_attention_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels import flash_attention as fa
+
+    q = torch.zeros((2, 64, 100), device=cuda)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fa.flash_attention(q, q, q)
+    q = torch.zeros((2, 64, 64), device=cuda)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(AssertionError):
+        fa.flash_attention(q, q, q, block_q=48)
+    assert not any(launch_counts().values())
+
+
+def test_ssd_scan_and_attention_on_card_launch_the_kernels(cuda):
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(3)
+    t = lambda *s: torch.tensor(rng.normal(size=s) * 0.3, dtype=torch.float32,
+                                device=cuda)
+    q, k, v = t(2, 3, 512, 64), t(2, 3, 512, 64), t(2, 3, 512, 64)
+    la = -torch.nn.functional.softplus(t(2, 3, 512))
+    reset_launch_counts()
+    y = ops.ssd_scan(q, k, v, la, backend="pallas")
+    counts = {kk: n for kk, n in launch_counts().items() if n}
+    assert counts == {"chunk_local": 1, "chunk_apply": 1}
+    y_x = ops.ssd_scan(q, k, v, la, backend="xla")
+    torch.testing.assert_close(y, y_x, rtol=2e-4, atol=1e-3)
+    qa, ka, va = t(2, 8, 256, 32), t(2, 2, 256, 32), t(2, 2, 256, 32)
+    reset_launch_counts()
+    a = ops.attention(qa, ka, va, backend="pallas", block_q=128, block_k=128)
+    assert launch_counts()["flash_attention"] == 1
+    torch.testing.assert_close(a, ops.attention(qa, ka, va, backend="xla"),
+                               rtol=2e-3, atol=2e-3)
+
+
+def test_zamba2_smoke_server_on_card_goes_through_the_kernels(cuda):
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import Request, ServeConfig, Server
+
+    cfg = dataclasses.replace(get_smoke_config("zamba2-7b"),
+                              attn_backend="pallas", ssm_backend="pallas")
+    srv = Server(ServeConfig(arch="zamba2-7b", eos_id=None, max_len=80),
+                 acfg=cfg)
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(2, 500, 64, dtype=np.int32), max_new=8)
+            for i in range(3)]
+    reset_launch_counts()
+    stats = srv.serve_batch(reqs)
+    counts = {kk: n for kk, n in launch_counts().items() if n}
+    assert counts == {"chunk_local": 2, "chunk_apply": 2, "flash_attention": 1}
+    assert stats["generated"] == 24 and all(len(r.output) == 8 for r in reqs)
