@@ -38,7 +38,10 @@ kernels' launch counts zeroed just before it and read just after:
 Output, one line each: ``env``, ``build``, ``kernel warp_ncc``,
 ``kernel lookback_scan``, ``kernel tile_local_scan``, ``kernel tile_apply``,
 ``kernel fused_round``, ``kernel chunk_local``, ``kernel chunk_apply``,
-``kernel flash_attention``, ``series``, ``series_hier``, ``series_compose``,
+``kernel flash_attention``, ``redesign`` (the two kernels redesigned for
+Hopper beside their previous designs: times, the library call's, the
+bound, the HGMMA count of flash_attention's SASS and lookback_scan's
+longest walk), ``series``, ``series_hier``, ``series_compose``,
 ``scan_engine``, ``lm_serve``, ``lm_check``, ``kernels`` (JSON), the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``.  Any
 failed phase raises and the script exits non-zero; without a CUDA device it
@@ -1101,6 +1104,143 @@ def check_flash_attention(device) -> dict:
     }
 
 
+# The redesigned kernels' previous designs (flash_attention with the bf16
+# products on the f32 CUDA cores; lookback_scan with each thread's strided
+# rows read twice and a one-tile-at-a-time walk): their times as PERF.md
+# records them, used when --previous-csrc does not name the sources to
+# build and time them in this run.
+PREVIOUS_RECORDED = {
+    "flash_attention": {"ms": 0.543, "origin": "PERF.md §6 row 8, the "
+                        "previous design (NVIDIA H100 80GB HBM3, 700.00 W)"},
+    "lookback_scan": {"ms": 0.313, "origin": "PERF.md §6 row 2, the "
+                      "previous design (NVIDIA H100 80GB HBM3, 700.00 W)"},
+}
+
+
+def _previous_launch(csrc: str, name: str):
+    """Kernel ``name`` built from another checkout's ``csrc`` directory with
+    the port's nvcc flags; returns its typed launch entry point (the C
+    interfaces of both redesigned kernels are unchanged)."""
+    import ctypes
+
+    from repro_torch.kernels import _cuda
+
+    out = os.path.join(_cuda.BUILD_DIR, "previous", f"lib{name}.so")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", out,
+                    os.path.join(csrc, f"{name}.cu")], check=True,
+                   capture_output=True, text=True)
+    fn = getattr(ctypes.CDLL(out), f"{name}_launch")
+    fn.restype = ctypes.c_int
+    if name == "flash_attention":
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                       + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
+                                               ctypes.c_void_p])
+    else:
+        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 8
+                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    return fn
+
+
+# Predecessor tiles whose flags warp 0 reads in one lookback step (one a
+# lane; chained_scan.cuh:warp_lookback).
+LOOKBACK_STEP_TILES = 32
+
+
+def _hgmma_count(name: str) -> int:
+    """HGMMA (wgmma) instructions in kernel ``name``'s built library."""
+    from repro_torch.kernels import _cuda
+
+    cuobjdump = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", _cuda.library_path(name)],
+                          capture_output=True, text=True, check=True).stdout
+    return sum(1 for ln in sass.splitlines() if "HGMMA" in ln)
+
+
+def check_redesigns(device, kfa: dict, kl: dict,
+                    previous_csrc: str = None) -> dict:
+    """The two redesigned kernels beside their previous designs at the
+    main path's shapes: flash_attention bf16 at (128, 512, 112) and
+    lookback_scan add at 2^24 x 1.  With ``previous_csrc`` the previous
+    sources are built and timed here in turns (previous, new, new,
+    previous); else the previous times are PERF.md's.  The new kernels'
+    correctness is held in check_flash_attention / check_lookback_scan."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lookback_scan as lb
+    from repro_torch.kernels._tiling import default_num_tiles_cuda
+
+    cfg, _g, _l = _lm_shapes()
+    bh, l, d = LM_BATCH * cfg.n_heads, LM_PROMPT, cfg.hd
+    gen = torch.Generator(device=device).manual_seed(22)
+    q, k, v = ((torch.randn((bh, l, d), generator=gen, device=device)
+                * 0.5).to(torch.bfloat16) for _ in range(3))
+    n = SCAN_N
+    t = default_num_tiles_cuda(n)
+    x = _ints(n, 1, device, seed=1)
+    new = {"flash_attention": lambda: fa.flash_attention_cuda(q, k, v),
+           "lookback_scan": lambda: lb.lookback_scan_cuda(torch.add, x, t)}
+    previous = {}
+    if previous_csrc:
+        pf = _previous_launch(previous_csrc, "flash_attention")
+        pl = _previous_launch(previous_csrc, "lookback_scan")
+
+        def stream():
+            return torch.cuda.current_stream(device).cuda_stream
+
+        def prev_flash():
+            out = torch.empty_like(q)
+            err = pf(1, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     out.data_ptr(), bh, l, l, d, d ** -0.5, 1, stream())
+            assert err == 0, err
+            return out
+
+        def prev_lookback():
+            y = torch.empty_like(x)
+            status = torch.zeros((t, 1), dtype=torch.int32, device=device)
+            aggs = torch.empty((t, 1), device=device)
+            prefs = torch.empty((t, 1), device=device)
+            counter = torch.zeros((1,), dtype=torch.int32, device=device)
+            err = pl(0, 1, 0, x.data_ptr(), None, y.data_ptr(),
+                     status.data_ptr(), aggs.data_ptr(), prefs.data_ptr(),
+                     counter.data_ptr(), None, t, n // t, stream())
+            assert err == 0, err
+            return y
+
+        previous = {"flash_attention": prev_flash,
+                    "lookback_scan": prev_lookback}
+        # The previous kernels compute the same function.
+        _close_to(prev_flash(), fa.flash_attention_reference(q, k, v),
+                  *FLASH_TOL[torch.bfloat16], "previous flash_attention")
+        _require_equal(prev_lookback(), torch.cumsum(x, 0),
+                       "previous lookback_scan")
+    out = {}
+    for name, fn in new.items():
+        if name in previous:
+            runs = [_time_ms(previous[name]), _time_ms(fn), _time_ms(fn),
+                    _time_ms(previous[name])]
+            ms = min(runs[1], runs[2])
+            prev = {"previous_ms": min(runs[0], runs[3]),
+                    "previous_graph_ms": _graph_ms(previous[name]),
+                    "previous_origin": "built from --previous-csrc and "
+                                       "timed in this run",
+                    "turns_ms": runs}
+        else:
+            ms = _time_ms(fn)
+            prev = {"previous_ms": PREVIOUS_RECORDED[name]["ms"],
+                    "previous_origin": PREVIOUS_RECORDED[name]["origin"]}
+        row = kfa if name == "flash_attention" else kl
+        out[name] = {"ms": ms, "graph_ms": _graph_ms(fn), **prev,
+                     "library_ms": row["library_ms"],
+                     "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                     "speedup_vs_previous": prev["previous_ms"] / ms}
+    out["flash_attention"].update(shape=[bh, l, d], dtype="bf16",
+                                  hgmma_in_sass=_hgmma_count(fa.NAME))
+    out["lookback_scan"].update(
+        shape=[n, 1], tiles=t, walk_tiles_max=kl["walk_steps_max"],
+        walk_warp_steps_max=-(-kl["walk_steps_max"] // LOOKBACK_STEP_TILES))
+    return out
+
+
 def _lm_config(smoke: bool, **kw):
     from dataclasses import replace
 
@@ -1246,7 +1386,8 @@ def run_lm_serve(device, smoke: bool = False) -> dict:
 
 _KERNEL_GROUPS = (("chunk_local", "chunk_local_kernel"),
                   ("chunk_apply", "chunk_apply_kernel"),
-                  ("flash_attention", "flash_kernel"))
+                  ("flash_attention", "flash_bf16_kernel"),
+                  ("flash_attention", "flash_f32_kernel"))
 
 
 def _kernel_group(name: str) -> str:
@@ -1364,6 +1505,12 @@ def main() -> int:
                     help="run the series, engine and LM phases on the CPU at "
                          "small sizes with the plain kernels; exits 3 with no "
                          "result line")
+    ap.add_argument("--previous-csrc", default=None,
+                    help="csrc directory of the kernels' previous designs "
+                         "(e.g. from git archive of an earlier commit): "
+                         "build and time flash_attention and lookback_scan "
+                         "from there beside the current ones; without it "
+                         "the redesign line quotes PERF.md's times")
     args = ap.parse_args()
 
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -1421,6 +1568,12 @@ def main() -> int:
     _line("kernel chunk_apply", kc_apply)
     kfa = check_flash_attention(dev)
     _line("kernel flash_attention", kfa)
+    redesign = check_redesigns(dev, kfa, kl, args.previous_csrc)
+    _line("redesign", redesign)
+    if redesign["flash_attention"]["hgmma_in_sass"] < 1:
+        raise AssertionError("flash_attention's library has no HGMMA "
+                             "instruction: the bf16 products are not on the "
+                             "tensor cores")
 
     series = run_series(dev, 33, SIZE)
     _line("series", series)

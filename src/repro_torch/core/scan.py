@@ -4,7 +4,8 @@
   per-element execution for expensive operators, and the oracle of the
   property tests.
 * :func:`prefix_scan` — circuit scan of a tree of tensors; equivalent to
-  ``engine.scan(op, xs, backend="vector")``.
+  ``engine.scan(op, xs, backend="vector")``; :func:`exclusive_scan`, its
+  exclusive form.
 * :func:`blocked_scan` — the paper's local–global–local decomposition
   (§4.1) for N >> P: *scan-then-map* (Fig. 6a) and *reduce-then-scan*
   (Fig. 6b), with any circuit as the global phase; it backs the engine's
@@ -41,6 +42,13 @@ def prefix_scan(op: Op, xs, *, algorithm: str = "ladner_fischer") -> Any:
     from .engine import scan as engine_scan
 
     return engine_scan(op, xs, backend="vector", algorithm=algorithm)
+
+
+def exclusive_scan(op: Op, xs, *, algorithm: str = "ladner_fischer") -> Any:
+    """Exclusive scan; out[0] is x[0]'s *identity stand-in* (= x[0], flagged
+    by callers that use it — all internal users consume out[1:])."""
+    inc = prefix_scan(op, xs, algorithm=algorithm)
+    return tree_map(lambda t, x: torch.cat([x[:1], t[:-1]], dim=0), inc, xs)
 
 
 def _local_inclusive_scan(op: Op, seg, axis: int = 0):

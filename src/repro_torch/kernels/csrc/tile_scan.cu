@@ -14,8 +14,9 @@
 // Design.
 //  * tile_local_scan: each tile is cut into chunks of 256 x 16 rows, one
 //    block a chunk, chained within the tile by decoupled lookback
-//    (chained_scan.cuh, the kernel lookback_scan uses, with every walk
-//    stopping at its tile's first chunk).  So a few large tiles still fill
+//    (chained_scan.cuh, the kernel lookback_scan uses: each chunk read
+//    once by 16-byte loads into shared memory, a warp-wide walk that stops
+//    at its tile's first chunk at the latest).  So a few large tiles still fill
 //    the card: the engine's segment count is often 16, and one block per
 //    tile would leave 116 of the 132 SMs idle.  The last chunk of a tile
 //    writes the tile's total.  The chunk board (status, aggregates,
@@ -58,14 +59,12 @@ template <int OP, int D>
 int launch_local(const void* x, void* local, void* partials, void* status,
                  void* aggs, void* prefs, void* counter, int t, int k,
                  int chunk_rows, int chunks_per_tile, cudaStream_t st) {
-  chained_scan_kernel<OP, D, false>
-      <<<t * chunks_per_tile, kThreads, 0, st>>>(
-          static_cast<const float*>(x), nullptr, static_cast<float*>(local),
-          static_cast<int*>(status), static_cast<float*>(aggs),
-          static_cast<float*>(prefs), static_cast<float*>(partials),
-          static_cast<unsigned*>(counter), nullptr, k, chunk_rows,
-          chunks_per_tile);
-  return (int)cudaGetLastError();
+  return launch_chained<OP, D, false>(
+      t * chunks_per_tile, st, static_cast<const float*>(x), nullptr,
+      static_cast<float*>(local), static_cast<int*>(status),
+      static_cast<float*>(aggs), static_cast<float*>(prefs),
+      static_cast<float*>(partials), static_cast<unsigned*>(counter), nullptr,
+      k, chunk_rows, chunks_per_tile);
 }
 
 template <int OP, int D>
@@ -85,7 +84,7 @@ int launch_apply(const void* local, const void* seeds, void* out, int t, int k,
 //
 // tile_local_scan: each of the t tiles of k rows is cut into
 // chunks_per_tile chunks of chunk_rows rows (the last one shorter); status
-// (t * chunks_per_tile, zeroed), aggs and prefs (t * chunks_per_tile, d) and
+// (t * chunks_per_tile, 2, zeroed), aggs and prefs (t * chunks_per_tile, d) and
 // counter (1, zeroed) are the chunk board's scratch.
 extern "C" int tile_local_scan_launch(int op, int d, const void* x,
                                       void* local, void* partials,

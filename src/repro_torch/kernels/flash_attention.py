@@ -6,13 +6,17 @@ d)`` with matching head counts (GQA kv heads are repeated upstream, in
 aligned top-left (``rows >= cols``), masked scores are ``NEG_INF = -1e30``,
 and a denominator of 0 reads as 1, all as in the TPU kernel.  The wrapper
 keeps the TPU kernel's block checks (``blk = min(block, L)``, ``L % blk ==
-0``); the CUDA kernel tiles by 64 x 64 whatever the blocks, and its result
+0``); the CUDA kernels tile by 64 x 64 whatever the blocks, and their result
 does not depend on them beyond float32 rounding.
 
 :func:`flash_attention` takes its route from where its tensors lie: CPU
 tensors run :func:`flash_attention_reference`; CUDA tensors launch
-``csrc/flash_attention.cu`` (built at first use) or raise.  The kernel takes
-float32 or bfloat16 and ``d`` a multiple of 8 up to 128.
+``csrc/flash_attention.cu`` (built at first use) or raise.  The library
+holds two kernels and the dtype picks one: bfloat16 runs both products on
+the tensor cores (``wgmma``, f32 accumulators, P as two bf16 terms in
+P·V); float32 runs them on the CUDA cores in full float32, since ``wgmma``
+on float32 operands would be TF32.  Both take ``d`` a multiple of 8 up to
+128.
 """
 
 from __future__ import annotations
@@ -104,6 +108,10 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
             raise ValueError(f"flash_attention kernel: {name} is not "
                              "contiguous")
     scale = (d ** -0.5) if scale is None else scale
+    if q.dtype == torch.bfloat16:
+        # The bf16 kernel copies 16-byte pieces of rows (cp.async).
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (q, k, v))
     fn, error_string = _launcher()
     with torch.cuda.device(q.device):
         out = torch.empty_like(q)

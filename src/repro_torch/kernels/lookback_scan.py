@@ -209,7 +209,10 @@ def lookback_scan_cuda(
             seed_row = seed.to(device=dev, dtype=torch.float32).reshape(d)
             seed_row = seed_row.contiguous()
         y = torch.empty((t * k, d), dtype=torch.float32, device=dev)
-        status = torch.zeros((t, 1), dtype=torch.int32, device=dev)
+        # Column 0 is each tile's flag; for one-float rows the kernel
+        # publishes the value beside it in column 1 (one 8-byte word).
+        board = torch.zeros((t, 2), dtype=torch.int32, device=dev)
+        status = board[:, :1]
         aggs = torch.empty((t, d), dtype=torch.float32, device=dev)
         prefs = torch.empty((t, d), dtype=torch.float32, device=dev)
         counter = torch.zeros((1,), dtype=torch.int32, device=dev)
@@ -224,7 +227,7 @@ def lookback_scan_cuda(
         err = fn(KERNEL_OPS[name], d - int(masked), int(masked),
                  xc.data_ptr(),
                  seed_row.data_ptr() if seed_row is not None else None,
-                 y.data_ptr(), status.data_ptr(), aggs.data_ptr(),
+                 y.data_ptr(), board.data_ptr(), aggs.data_ptr(),
                  prefs.data_ptr(), counter.data_ptr(),
                  walk_steps.data_ptr() if walk_steps is not None else None,
                  t, k, stream)

@@ -185,7 +185,10 @@ def attention(
     lk = k.shape[2]
     if lq > 1024 or lq * lk > 1024 * 2048:
         return _blockwise_attention(q, k, v, scale, causal=causal, block_q=512)
-    s = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * scale
+    # The scores in float32 from the operands as they are: the reference's
+    # einsum(...).astype(f32) compiles to a product with a float32 result,
+    # not one rounded to q's type first.
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     if causal:
         mask = torch.tril(torch.ones((lq, lk), dtype=torch.bool,
                                      device=q.device), diagonal=lk - lq)
@@ -206,7 +209,7 @@ def _blockwise_attention(q, k, v, scale, *, block_q: int, causal: bool,
     block_q = min(block_q, l)
 
     def blk(q_blk, k_pre, v_pre, q_start):
-        s = torch.einsum("bhqd,bhkd->bhqk", q_blk, k_pre).float() * scale
+        s = torch.einsum("bhqd,bhkd->bhqk", q_blk.float(), k_pre.float()) * scale
         if causal:
             rows = q_start + torch.arange(q_blk.shape[2], device=q.device)[:, None]
             cols = torch.arange(k_pre.shape[2], device=q.device)[None, :]

@@ -198,7 +198,7 @@ def tile_local_scan_cuda(
         xc = x.contiguous()
         local = torch.empty((t, k, d), dtype=torch.float32, device=dev)
         partials = torch.empty((t, d), dtype=torch.float32, device=dev)
-        status = torch.zeros((t * chunks,), dtype=torch.int32, device=dev)
+        status = torch.zeros((t * chunks, 2), dtype=torch.int32, device=dev)
         aggs = torch.empty((t * chunks, d), dtype=torch.float32, device=dev)
         prefs = torch.empty((t * chunks, d), dtype=torch.float32, device=dev)
         counter = torch.zeros((1,), dtype=torch.int32, device=dev)

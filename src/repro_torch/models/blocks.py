@@ -83,9 +83,44 @@ def block_apply(
     seq_axes=None,
 ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
     """Apply one block. Returns (x, new_state, aux_loss)."""
+    x_in, y, new_state, aux = block_residual(
+        p, cfg, kind, x, positions=positions, mode=mode, state=state,
+        pos=pos, enc_out=enc_out, seq_axes=seq_axes)
+    return x_in + y, new_state, aux
+
+
+def _norm(p, cfg: ArchConfig, x, x32=None):
+    """rmsnorm of the residual stream x, or of x32, the same sum formed in
+    float32 where it was never rounded to x's type (see block_residual)."""
+    return rmsnorm(p, x if x32 is None else x32, cfg.norm_eps).to(x.dtype)
+
+
+def block_residual(
+    p,
+    cfg: ArchConfig,
+    kind: str,
+    x,
+    *,
+    norm_in=None,
+    positions=None,
+    mode: str = "train",
+    state=None,
+    pos=None,
+    enc_out=None,
+    seq_axes=None,
+):
+    """Apply one block as (x_in, y, new_state, aux_loss): its output is the
+    residual sum x_in + y, left to the caller.
+
+    Inside the reference's compiled superblock XLA forms a residual sum that
+    feeds a norm in float32 from its two bf16 terms, unrounded (the norm's
+    upcast absorbs the add), while the stream carries the rounded sum.
+    ``norm_in`` is that float32 sum for this block's first norm (the caller
+    has it from the previous block of the superblock); the attention block's
+    second norm gets its own the same way.  In float32 both equal x."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind in ("attn", "shared_attn"):
-        h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+        h = _norm(p["ln1"], cfg, x, norm_in)
         if mode == "train":
             a = attention_block(p["attn"], cfg, h, positions)
             new_state = None
@@ -95,21 +130,19 @@ def block_apply(
             a, new_state = attention_decode(p["attn"], cfg, h, pos, state)
         else:
             raise ValueError(mode)
-        x = x + a
         if "xattn" in p and enc_out is not None:
             raise _not_ported("cross-attention (xattn) blocks")
-        h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-        x = x + swiglu(p["mlp"], h)
-        return x, new_state, aux
+        h = _norm(p["ln2"], cfg, x, x.float() + a.float())
+        return x + a, swiglu(p["mlp"], h), new_state, aux
     if kind == "mamba2":
-        h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+        h = _norm(p["ln1"], cfg, x, norm_in)
         if mode == "train":
             y, new_state = mamba2_apply(p["mixer"], cfg, h, seq_axes=seq_axes), None
         elif mode == "prefill":
             y, new_state = mamba2_prefill(p["mixer"], cfg, h, state)
         else:
             y, new_state = mamba2_decode(p["mixer"], cfg, h, state)
-        return x + y, new_state, aux
+        return x, y, new_state, aux
     if kind in _UNPORTED_KINDS:
         raise _not_ported(f"the {kind!r} block")
     raise ValueError(kind)

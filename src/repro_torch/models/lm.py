@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.core._tree import tree_index, tree_map, tree_stack
 
-from .blocks import block_apply, block_init, block_state_init
+from .blocks import block_init, block_residual, block_state_init
 from .config import ArchConfig
 from .layers import embed, embed_init, head_init, head_logits, rmsnorm, rmsnorm_init
 
@@ -91,14 +91,19 @@ def _run_blocks(params, cfg: ArchConfig, x, *, positions, mode, states=None,
         else:
             layer_states = states.get(f"sb{i}", {})
         new_states = {}
+        # The superblock's input comes rounded (the reference's scan carry);
+        # inside it, each block's first norm reads the float32 residual sum.
+        norm_in = None
         for j, kind in enumerate(pattern):
             p = params["shared"] if kind == "shared_attn" else layer_params[f"b{j}"]
             st = layer_states.get(f"b{j}") if has_states else None
-            x, nst, a = block_apply(
-                p, cfg, kind, x,
+            x_in, y, nst, a = block_residual(
+                p, cfg, kind, x, norm_in=norm_in,
                 positions=positions, mode=mode, state=st, pos=pos,
                 enc_out=enc_out, seq_axes=seq_axes,
             )
+            x = x_in + y
+            norm_in = x_in.float() + y.float()
             aux = aux + a
             if has_states:
                 new_states[f"b{j}"] = nst

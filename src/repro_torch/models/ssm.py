@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops as kops
 
 from .config import ArchConfig
-from .layers import dense, dense_init, rmsnorm, rmsnorm_init
+from .layers import dense, dense_init, rmsnorm, rmsnorm_init, silu
 
 
 # ---------------------------------------------------------------------------
@@ -57,7 +57,7 @@ def _causal_conv(x, w, b, state=None):
     xp = torch.cat([pad, x], dim=1)
     y = sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(width))
     new_state = xp[:, -(width - 1):] if width > 1 else None
-    return F.silu(y + b), new_state
+    return silu(y + b), new_state
 
 
 def _mamba2_inner(p, cfg: ArchConfig, u, conv_state=None, ssm_state=None,
@@ -99,8 +99,11 @@ def _mamba2_inner(p, cfg: ArchConfig, u, conv_state=None, ssm_state=None,
         new_ssm = None  # full-state return handled by the prefill wrapper
     y = y + p["d_skip"][None, :, None, None] * v.float()
     y = y.transpose(1, 2).reshape(bsz, l, di).to(u.dtype)
-    y = rmsnorm(p["gate_norm"], y * F.silu(z), cfg.norm_eps)
-    return dense(p["out_proj"], y), new_conv, new_ssm
+    # The gate's product feeds the norm's float32 upcast, and XLA, inside
+    # the reference's compiled layer, forms it in float32 without rounding
+    # it to u's type first; so does this.
+    y = rmsnorm(p["gate_norm"], y.float() * silu(z).float(), cfg.norm_eps)
+    return dense(p["out_proj"], y.to(u.dtype)), new_conv, new_ssm
 
 
 def mamba2_apply(p, cfg: ArchConfig, x, *, seq_axes=None):

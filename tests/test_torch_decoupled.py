@@ -443,3 +443,23 @@ def test_compose_suffix_of_a_long_feed_reaches_decoupled(card):
     got = np.stack([e.deformation["shift"].numpy() for e in out])
     np.testing.assert_allclose(got, np.asarray(want["shift"]), rtol=1e-5,
                                atol=_long_chain_atol(want))
+
+
+def test_bfloat16_roundtrip():
+    """tests/test_decoupled.py:90: bf16 add through the decoupled backend
+    keeps its dtype and sums integer rows exactly (the plain lookback scan
+    on the CPU; on the card the kernel table takes float32 only).  The
+    reference's own case cannot run here (its Pallas lookback_scan calls
+    pl.store, which the installed jax lacks), so the oracle is its
+    cumsum in float32."""
+    x = _int_rows(64, seed=4)
+    y = tengine.scan(torch.add, torch.from_numpy(x).bfloat16(),
+                     backend="decoupled")
+    assert y.dtype == torch.bfloat16
+    want = np.cumsum(np.asarray(jnp.asarray(x, jnp.bfloat16), np.float32),
+                     axis=0)
+    np.testing.assert_allclose(y.float().numpy(), want, rtol=0.05, atol=1.0)
+    # Every prefix is an integer of at most 8 significant bits here, so
+    # bf16 holds it exactly.
+    assert np.abs(want).max() < 256
+    np.testing.assert_array_equal(y.float().numpy(), want)

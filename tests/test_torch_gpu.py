@@ -266,6 +266,76 @@ def test_lookback_kernel_race_stress(cuda):
     assert longest > 1
 
 
+# The main path's scan shape: 2^24 rows of width 1 over the card's 4096
+# tiles (default_num_tiles_cuda).
+FULL_N, FULL_TILES = 2**24, 4096
+
+
+@pytest.mark.parametrize("case", ["add", "seeded", "masked", "max"])
+def test_lookback_kernel_full_size_is_exact(cuda, case):
+    """At 2^24 x 1 over 4096 tiles: integer-valued add (plain, seeded,
+    masked) and max over random floats, bit for bit with the plain version
+    and with torch's own scan."""
+    n, t = FULL_N, FULL_TILES
+    assert default_num_tiles_cuda(n) == t
+    x = _ints(n, 1, cuda, seed=41)
+    kw, op, exact = {}, torch.add, None
+    if case == "seeded":
+        kw["seed"] = torch.tensor([3.0], device=cuda)
+        exact = torch.cumsum(x.double(), 0).float() + 3.0
+    elif case == "masked":
+        valid = (torch.arange(n, device=cuda) % 7) != 3
+        valid[:5] = False
+        x = torch.cat([x, (~valid).float()[:, None]], dim=1)
+        op = lift_masked(torch.add)
+    elif case == "max":
+        x = _floats(n, 1, cuda, seed=42)
+        op = torch.maximum
+        exact = torch.cummax(x, 0).values
+    else:
+        exact = torch.cumsum(x.double(), 0).float()
+    got = lb.lookback_scan_cuda(op, x, t, **kw)
+    want = lb.lookback_scan_reference(op, x, t, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g, w)
+    if exact is not None:
+        assert torch.equal(got[0], exact)
+
+
+@pytest.mark.parametrize("d", [1, 3, 4])
+def test_lookback_kernel_rows_of_any_width_are_exact(cuda, d):
+    """W = 1, 3, 4 and an odd tile length, so the 16-byte words of a tile
+    start and end inside rows: the ends are stored float by float."""
+    for n, t in ((2**20, 256), (37 * 1001, 1001), (4099 * 5, 5)):
+        x = _ints(n, d, cuda, seed=n + d)
+        got = lb.lookback_scan_cuda(torch.add, x, t)
+        want = lb.lookback_scan_reference(torch.add, x, t)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def test_lookback_kernel_walks_a_warp_at_a_time(cuda):
+    """At 2^24 x 1 over 4096 tiles, over 20 launches: every walk folds at
+    least one tile, and none passes the tiles that can be resident with it
+    (8 blocks of 256 threads an SM): a tile further back has finished, so
+    it has published its PREFIX.  The walk moves 32 tiles a warp step."""
+    n, t = FULL_N, FULL_TILES
+    resident = 8 * torch.cuda.get_device_properties(cuda).multi_processor_count
+    x = _ints(n, 1, cuda, seed=43)
+    steps = torch.zeros((t,), dtype=torch.int32, device=cuda)
+    longest = 0
+    for _ in range(20):
+        lb.lookback_scan_cuda(torch.add, x, t, walk_steps=steps)
+        torch.cuda.synchronize()
+        assert int(steps[1:].min()) >= 1
+        longest = max(longest, int(steps[1:].max()))
+    print(f"longest walk over 20 launches: {longest} tiles, "
+          f"{-(-longest // 32)} warp steps; {resident} tiles resident")
+    assert longest < resident
+
+
 @pytest.mark.parametrize("n,t", [(4096, 1), (2**20, 16), (2**20, 128),
                                  (3 * 5000, 3), (2**16 + 16, 16)])
 @pytest.mark.parametrize("d", [1, 2, 4])
@@ -590,6 +660,31 @@ def test_flash_attention_kernel_matches_plain(cuda, bh, l, d, blocks, causal,
     # tests/test_kernels.py:105's 2e-3 in float32; one bf16 step in bf16.
     rtol, atol = (2e-3, 2e-3) if dtype == torch.float32 else _BF16_TOL
     torch.testing.assert_close(o_k.float(), o_p.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("l", [96, 512])
+@pytest.mark.parametrize("d", [112, 64, 128, 40])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bf16_tensor_core_kernel_matches_plain(cuda, l, d,
+                                                               causal):
+    """The bf16 kernel (wgmma) at the head dims it pads differently: 112,
+    64 and 128 are multiples of 16, 40 is padded to 48 with zeros; L = 96
+    leaves a ragged last key tile, L = 512 is the serving prompt."""
+    from repro_torch.kernels import flash_attention as fa
+
+    rng = np.random.default_rng(l * d + causal)
+    q, k, v = (torch.tensor(rng.normal(size=(8, l, d)) * 0.5,
+                            dtype=torch.float32, device=cuda).bfloat16()
+               for _ in range(3))
+    blocks = (32, 96) if l == 96 else (256, 512)
+    o_k = fa.flash_attention_cuda(q, k, v, causal=causal, block_q=blocks[0],
+                                  block_k=blocks[1])
+    o_p = fa.flash_attention_reference(q, k, v, causal=causal,
+                                       block_q=blocks[0], block_k=blocks[1])
+    torch.cuda.synchronize()
+    assert o_k.dtype == torch.bfloat16
+    torch.testing.assert_close(o_k.float(), o_p.float(), rtol=_BF16_TOL[0],
+                               atol=_BF16_TOL[1])
 
 
 def test_flash_attention_refuses_what_it_does_not_take(cuda):

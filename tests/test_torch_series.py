@@ -249,3 +249,64 @@ def test_port_sources_import_no_jax_and_no_reference():
             src = f.read()
         offenders += [(p, m.group(0).strip()) for m in _FORBIDDEN.finditer(src)]
     assert not offenders, offenders
+
+
+def test_prefetched_producer_stops_when_consumer_abandons():
+    """tests/test_hierarchical.py:409 on the port's pipeline: after the
+    consumer closes the generator the producer thread stops pulling from
+    the source promptly, with bounded lookahead."""
+    import time
+
+    from repro_torch.pipeline import _prefetched
+
+    produced = []
+
+    def source():
+        for i in range(10_000):
+            produced.append(i)
+            yield i
+
+    gen = _prefetched(source(), depth=1)
+    assert next(gen) == 0
+    gen.close()  # consumer walks away
+    time.sleep(0.3)  # let any still-running producer make progress
+    count = len(produced)
+    time.sleep(0.2)
+    assert len(produced) == count, "producer kept pulling after close()"
+    # Bounded lookahead: one in flight + queue depth + one blocked put.
+    assert count <= 8
+
+
+def test_prefetched_reraises_producer_exception():
+    """tests/test_hierarchical.py:433 on the port's pipeline."""
+    from repro_torch.pipeline import _prefetched
+
+    def source():
+        yield 1
+        raise RuntimeError("stream died")
+
+    gen = _prefetched(source())
+    assert next(gen) == 1
+    with pytest.raises(RuntimeError, match="stream died"):
+        next(gen)
+
+
+def test_register_series_cross_steal_knob_and_report():
+    """tests/test_hierarchical.py:446: cross_steal=True on a hierarchical
+    run surfaces inter-segment steal counts in the stage report, in both
+    packages, and the two agree on the shifts."""
+    frames_j, _ = make_series(jax.random.PRNGKey(13), 10, size=96, noise=0.12)
+    kw = dict(backend="hierarchical", num_segments=2, num_threads=2,
+              cross_steal=True)
+    want = repro.register_series(
+        frames_j, repro.RegisterSeriesConfig(telemetry_name="test_cross_ref",
+                                             **kw))
+    got = repro_torch.register_series(
+        np.array(frames_j),
+        repro_torch.RegisterSeriesConfig(telemetry_name="test_cross", **kw),
+        device="cpu")
+    for res in (want, got):
+        assert res.scan_stats is not None and res.scan_stats.cross_steal
+        assert "cross-segment steals:" in res.report()
+    assert np.abs(got.deformations["shift"].numpy()
+                  - np.asarray(want.deformations["shift"])).max() < PARITY_PX

@@ -1,0 +1,150 @@
+"""Time variants of a port kernel that differ in one compile-time constant.
+
+Run from the repository root on a machine with a CUDA card::
+
+    python tools/kernel_variants.py flash_attention kQWG 1 2
+
+For each value it copies ``src/repro_torch/kernels/csrc`` into
+``build/variants/<kernel>-<name>-<value>/``, sets the line
+``constexpr int <name> = ...;`` of ``<kernel>.cu`` to the value, builds the
+library with the port's nvcc flags, holds its output against the plain
+version at the main path's shape, and times it by CUDA-graph replay (the
+card's own time), the variants in turn and then in reverse order.  It
+prints one line per variant, and the card's name and power limit.
+
+Kernels: ``flash_attention`` (bf16, BH 128, L 512, d 112, causal: the
+serving path's prefill) and ``lookback_scan`` (add over 2^24 x 1 floats in
+4096 tiles: the decoupled backend's scan).
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(0, ROOT)
+
+import chip_smoke  # noqa: E402  (timing helpers and tolerances)
+from repro_torch.kernels import _cuda  # noqa: E402
+
+
+def _build(kernel: str, name: str, value: int):
+    out_dir = os.path.join(ROOT, "build", "variants",
+                           f"{kernel}-{name}-{value}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    shutil.copytree(_cuda.CSRC, out_dir)
+    src_path = os.path.join(out_dir, f"{kernel}.cu")
+    for path in [src_path] + [os.path.join(out_dir, f)
+                              for f in os.listdir(out_dir)
+                              if f.endswith(".cuh")]:
+        with open(path) as f:
+            src = f.read()
+        new, hits = re.subn(rf"constexpr int {name} = [^;]+;",
+                            f"constexpr int {name} = {value};", src)
+        if hits:
+            with open(path, "w") as f:
+                f.write(new)
+            break
+    else:
+        raise SystemExit(f"no 'constexpr int {name}' in {kernel}.cu or "
+                         "the headers")
+    lib = os.path.join(out_dir, "lib.so")
+    subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", lib, src_path],
+                   check=True, capture_output=True, text=True)
+    return getattr(ctypes.CDLL(lib), f"{kernel}_launch")
+
+
+def _flash(device):
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(22)
+    q, k, v = ((torch.randn((128, 512, 112), generator=gen, device=device)
+                * 0.5).to(torch.bfloat16) for _ in range(3))
+    want = fa.flash_attention_reference(q, k, v)
+
+    def run(fn):
+        out = torch.empty_like(q)
+        err = fn(1, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 128, 512, 512, 112, 112 ** -0.5, 1,
+                 torch.cuda.current_stream(device).cuda_stream)
+        assert err == 0, err
+        return out
+
+    def check(out):
+        chip_smoke._close_to(out, want, *chip_smoke.BF16_TOL, "variant")
+
+    argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    return run, check, argtypes
+
+
+def _lookback(device):
+    from repro_torch.kernels._tiling import default_num_tiles_cuda
+
+    n = chip_smoke.SCAN_N
+    t = default_num_tiles_cuda(n)
+    x = chip_smoke._ints(n, 1, device, seed=1)
+    want = torch.cumsum(x.double(), 0).float()
+
+    def run(fn):
+        y = torch.empty_like(x)
+        board = torch.zeros((t, 2), dtype=torch.int32, device=device)
+        aggs = torch.empty((t, 1), device=device)
+        prefs = torch.empty((t, 1), device=device)
+        counter = torch.zeros((1,), dtype=torch.int32, device=device)
+        err = fn(0, 1, 0, x.data_ptr(), None, y.data_ptr(), board.data_ptr(),
+                 aggs.data_ptr(), prefs.data_ptr(), counter.data_ptr(), None,
+                 t, n // t, torch.cuda.current_stream(device).cuda_stream)
+        assert err == 0, err
+        return y
+
+    def check(out):
+        chip_smoke._require_equal(out, want, "variant")
+
+    argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 8
+                + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    return run, check, argtypes
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("kernel", choices=["flash_attention", "lookback_scan"])
+    ap.add_argument("name", help="the constexpr int to vary")
+    ap.add_argument("values", type=int, nargs="+")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("kernel_variants: no CUDA device", file=sys.stderr)
+        return 2
+    device = torch.device("cuda", 0)
+    run, check, argtypes = (_flash if args.kernel == "flash_attention"
+                            else _lookback)(device)
+    fns = {}
+    for value in args.values:
+        fn = _build(args.kernel, args.name, value)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        out = run(fn)
+        torch.cuda.synchronize()
+        check(out)
+        fns[value] = fn
+    times = {value: [] for value in fns}
+    for order in (list(fns), list(reversed(list(fns)))):
+        for value in order:
+            times[value].append(chip_smoke._graph_ms(lambda: run(fns[value])))
+    for value, ms in times.items():
+        print(f"{args.kernel} {args.name}={value}: graph ms {ms}", flush=True)
+    print(chip_smoke._smi(), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
