@@ -22,9 +22,11 @@ kernels' launch counts zeroed just before it and read just after:
   composition of 4096 deformations (``lookback_scan``), ``hierarchical`` add
   at 2^24 and an element list's device phase 1 (``tile_local_scan`` +
   ``tile_apply``); and ``backend="pallas"``: rounds mode at n = 2^16
-  (Ladner-Fischer plain and masked, Blelloch; one ``fused_round`` launch a
-  non-empty round) and tiles mode at 2^24 (add over 16 tiles, max over
-  4096; one ``tile_local_scan`` and one ``tile_apply`` launch);
+  (Ladner-Fischer plain and masked, Blelloch; the whole plan in one
+  ``fused_plan`` launch on a thread-block cluster) and at 2^17 x 4 (too
+  large for a cluster: one ``fused_round`` launch a non-empty round), and
+  tiles mode at 2^24 (add over 16 tiles, max over 4096; one
+  ``tile_local_scan`` and one ``tile_apply`` launch);
 * ``lm_serve``: ``repro_torch.launch.serve.Server`` serving Zamba2-7B at full
   width and depth (81 layers, bf16, seeded random weights on the card) with
   the kernel backends passed in through ``acfg``: 4 requests (three 512-token
@@ -37,11 +39,13 @@ kernels' launch counts zeroed just before it and read just after:
 
 Output, one line each: ``env``, ``build``, ``kernel warp_ncc``,
 ``kernel lookback_scan``, ``kernel tile_local_scan``, ``kernel tile_apply``,
-``kernel fused_round``, ``kernel chunk_local``, ``kernel chunk_apply``,
-``kernel flash_attention``, ``redesign`` (the two kernels redesigned for
-Hopper beside their previous designs: times, the library call's, the
-bound, the HGMMA count of flash_attention's SASS and lookback_scan's
-longest walk), ``series``, ``series_hier``, ``series_compose``,
+``kernel fused_round`` (the per-round kernel and the whole-plan
+``fused_plan`` kernel), ``kernel chunk_local``, ``kernel chunk_apply``,
+``kernel flash_attention``, ``redesign`` (the four kernels redesigned for
+Hopper, flash_attention, lookback_scan, fused_round and tile_apply, beside
+their previous designs: times, the library call's, the bound, the HGMMA
+count of flash_attention's SASS and lookback_scan's longest walk),
+``series``, ``series_hier``, ``series_compose``,
 ``scan_engine``, ``lm_serve``, ``lm_check``, ``kernels`` (JSON), the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``.  Any
 failed phase raises and the script exits non-zero; without a CUDA device it
@@ -56,6 +60,7 @@ kernel phases and exits 3 without a result line.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import subprocess
@@ -516,18 +521,28 @@ def _live_rounds(plan) -> int:
     return sum(1 for r in plan.rounds if r.num_combines or r.num_moves)
 
 
-def check_fused_round(device) -> dict:
-    """The fused_round kernel against its plain version, round by round on
-    the same input, exact: add over integer-valued rows (d = 1 and 4) and
-    max over random floats for each circuit at n = 2^16, a masked
-    Ladner-Fischer plan, and rigid composition of 4096 deformations (to
-    tolerance, and against the float64 chain).  Plans and their operand
-    tables are built before every timed window."""
+def check_fused_round(device) -> tuple:
+    """The per-round fused_round kernel and the whole-plan fused_plan kernel
+    against their plain versions on the same input, exact: add over
+    integer-valued rows (d = 1 and 4) and max over random floats for each
+    circuit at n = 2^16 (the plan kernel at the cluster size the engine's
+    size rule picks, and held against the per-round kernel's chain and the
+    library scan; Blelloch's captured total too), a masked Ladner-Fischer
+    plan, and rigid composition of 4096 deformations (to tolerance, and
+    against the float64 chain).  Ladner-Fischer add is also timed at every
+    cluster size that holds it.  Plans and their operands are built before
+    every timed window.  Returns the ``kernel fused_round`` line (with the
+    plan kernel's numbers) and the plan kernel's row of the kernels line."""
     from repro_torch.core.deformation import compose_batched
     from repro_torch.core.engine import get_plan, scan
-    from repro_torch.core.engine.pallas_backend import _round_index_tensors
+    from repro_torch.core.engine.pallas_backend import (
+        _plan_operands, _round_index_tensors,
+    )
     from repro_torch.kernels import tile_scan as ts
-    from repro_torch.kernels._tiling import pack_leaves, packed_op
+    from repro_torch.kernels._tiling import (
+        PLAN_MAX_CLUSTER, pack_leaves, packed_op, plan_cluster_size,
+        plan_min_cluster,
+    )
 
     n = ROUNDS_N
 
@@ -546,30 +561,53 @@ def check_fused_round(device) -> dict:
             y = yk
         return err
 
+    def plan_held(op, x, po, live, what) -> float:
+        yk, tk = ts.fused_plan_cuda(op, x, po)
+        yp, tp = ts.fused_plan_reference(op, x, po)
+        err = _require_equal(yk, yp, f"fused_plan {what} C={po.cluster}")
+        _require_equal(yk, rounds(ts.fused_round_cuda, op, x, live),
+                       f"fused_plan {what} vs the per-round kernel")
+        if (tk is None) != (tp is None):
+            raise AssertionError(f"fused_plan {what}: total {tk} vs {tp}")
+        if tk is not None:
+            err = max(err, _require_equal(tk, tp, f"fused_plan {what} total"))
+        return err
+
+    def plan_bound(plan, po, d) -> dict:
+        b = _bound(2 * n * d * 4 + po.nbytes, plan.work() * d)
+        return {"plan_bound_ms": b["bound_ms"], "plan_bound_by": b["bound_by"]}
+
     data = {"add_d1": (torch.add, _ints(n, 1, device, seed=12)),
             "add_d4": (torch.add, _ints(n, 4, device, seed=13)),
             "max_d1": (torch.maximum, _floats(n, 1, device, seed=14))}
-    by_case, err = {}, 0.0
+    by_case, err, plan_err = {}, 0.0, 0.0
     for alg in ROUND_CIRCUITS:
         t0 = time.perf_counter()
         plan = get_plan(alg, n)         # host compilation, once a plan
         plan_s = time.perf_counter() - t0
         live = [s for s in _round_index_tensors(plan, device) if s is not None]
         for label, (op, x) in data.items():
+            d = x.shape[1]
+            c = plan_cluster_size(n, d)
+            po = _plan_operands(plan, device, c)
             e = held(op, x, live, f"{alg} {label}")
-            y = rounds(ts.fused_round_cuda, op, x, live)
+            ep = plan_held(op, x, po, live, f"{alg} {label}")
+            y, total = ts.fused_plan_cuda(op, x, po)
             lib = (torch.cumsum(x.double(), 0).float() if op is torch.add
                    else torch.cummax(x, 0).values)
             if plan.exclusive:          # Blelloch: y[i] = x[0] o ... o x[i-1]
-                _require_equal(y[1:], lib[:-1], f"fused_round {alg} {label} "
+                _require_equal(y[1:], lib[:-1], f"fused_plan {alg} {label} "
                                "vs the library scan")
+                _require_equal(total, lib[-1], f"fused_plan {alg} {label} "
+                               "total vs the library reduction")
             else:
-                _require_equal(y, lib, f"fused_round {alg} {label} vs the "
+                _require_equal(y, lib, f"fused_plan {alg} {label} vs the "
                                "library scan")
-            err = max(err, e)
-            row = {"rounds": len(live), "max_abs_err": e, "plan_s": plan_s}
+            err, plan_err = max(err, e), max(plan_err, ep)
+            row = {"rounds": len(live), "max_abs_err": e,
+                   "plan_max_abs_err": ep, "plan_s": plan_s, "cluster": c,
+                   "entries": po.entries, "operand_bytes": po.nbytes}
             if label != "add_d4":
-                d = x.shape[1]
                 lib_fn = ((lambda x=x: torch.cumsum(x, 0)) if op is torch.add
                           else (lambda x=x: torch.cummax(x, 0)))
                 xs1 = x[:, 0]
@@ -579,30 +617,59 @@ def check_fused_round(device) -> dict:
                     "ms": chain, "ms_per_round": chain / len(live),
                     "graph_ms": _graph_ms(lambda op=op, x=x: rounds(
                         ts.fused_round_cuda, op, x, live)),
+                    "plan_ms": _time_ms(lambda op=op, x=x, po=po:
+                                        ts.fused_plan_cuda(op, x, po)),
+                    "plan_graph_ms": _graph_ms(lambda op=op, x=x, po=po:
+                                               ts.fused_plan_cuda(op, x, po)),
                     "scan_ms": _time_ms(lambda op=op, xs1=xs1: scan(
                         op, xs1, backend="pallas", algorithm=alg), reps=20),
                     "plain_ms": _time_ms(lambda op=op, x=x: rounds(
                         ts.fused_round_reference, op, x, live), reps=3,
                         warmup=1),
+                    "plan_plain_ms": _time_ms(
+                        lambda op=op, x=x, po=po: ts.fused_plan_reference(
+                            op, x, po), reps=3, warmup=1),
                     "library_ms": _time_ms(lib_fn),
                     **_bound(len(live) * (2 * n * d * 4 + 8 * n),
                              plan.work() * d),
+                    **plan_bound(plan, po, d),
                 })
             by_case[f"{alg}/{label}"] = row
 
-    # One masked Ladner-Fischer plan (moves as well as combines).
+    # Ladner-Fischer add at every cluster size that holds it: more CTAs
+    # split a round's operands finer, at a barrier across more.
+    plan = get_plan("ladner_fischer", n)
+    live = [s for s in _round_index_tensors(plan, device) if s is not None]
     x = data["add_d1"][1]
+    by_cluster = {}
+    c = plan_min_cluster(n, 1)
+    while c <= PLAN_MAX_CLUSTER:
+        po = _plan_operands(plan, device, c)
+        plan_err = max(plan_err, plan_held(torch.add, x, po, live,
+                                           "ladner_fischer add_d1"))
+        by_cluster[str(c)] = {
+            "plan_ms": _time_ms(lambda po=po: ts.fused_plan_cuda(torch.add,
+                                                                 x, po)),
+            "plan_graph_ms": _graph_ms(lambda po=po: ts.fused_plan_cuda(
+                torch.add, x, po))}
+        c *= 2
+
+    # One masked Ladner-Fischer plan (moves as well as combines).
     valid = (torch.arange(n, device=device) % 7) != 3
     valid[:5] = False
     plan = get_plan("ladner_fischer", n, mask=(~valid).tolist())
     live = [s for s in _round_index_tensors(plan, device) if s is not None]
+    po = _plan_operands(plan, device, plan_cluster_size(n, 1))
     e = held(torch.add, x, live, "masked ladner_fischer")
-    y = rounds(ts.fused_round_cuda, torch.add, x, live)
+    ep = plan_held(torch.add, x, po, live, "masked ladner_fischer")
+    y, _ = ts.fused_plan_cuda(torch.add, x, po)
     _require_equal(y[:, 0], _masked_cumsum(x[:, 0], valid),
-                   "fused_round masked vs the masked sum")
-    err = max(err, e)
+                   "fused_plan masked vs the masked sum")
+    err, plan_err = max(err, e), max(plan_err, ep)
     by_case["ladner_fischer_masked/add_d1"] = {
-        "rounds": len(live), "moves": plan.num_moves(), "max_abs_err": e}
+        "rounds": len(live), "moves": plan.num_moves(), "max_abs_err": e,
+        "plan_max_abs_err": ep, "cluster": po.cluster,
+        "entries": po.entries}
 
     # Rigid composition at the paper's series length: order shows here.
     dfm = _deformations(SERIES_LEN, device, seed=15)
@@ -611,6 +678,7 @@ def check_fused_round(device) -> dict:
     a64, s64 = _chain64(dfm["angle"], dfm["shift"])
     plan = get_plan("ladner_fischer", SERIES_LEN)
     live = [s for s in _round_index_tensors(plan, device) if s is not None]
+    po = _plan_operands(plan, device, plan_cluster_size(SERIES_LEN, 3))
     atol = _rigid_atol(s64)
     y, rigid_err = x2, 0.0
     for src in live:
@@ -621,41 +689,71 @@ def check_fused_round(device) -> dict:
             raise AssertionError("fused_round rigid: kernel and plain disagree")
         rigid_err = max(rigid_err, float((yk - yp).abs().max()))
         y = yk
-    rigid = {"n": SERIES_LEN, "rounds": len(live),
+    yk, _ = ts.fused_plan_cuda(pop, x2, po)
+    yp, _ = ts.fused_plan_reference(pop, x2, po)
+    torch.cuda.synchronize()
+    if not torch.allclose(yk, yp, rtol=RIGID_RTOL, atol=atol):
+        raise AssertionError("fused_plan rigid: kernel and plain disagree")
+    rigid = {"n": SERIES_LEN, "rounds": len(live), "cluster": po.cluster,
              "max_abs_err_vs_plain": rigid_err,
+             "plan_max_abs_err_vs_plain": float((yk - yp).abs().max()),
              **_check_vs_chain64(y[:, 0], y[:, 1:], a64, s64,
                                  "fused_round rigid"),
+             "plan": _check_vs_chain64(yk[:, 0], yk[:, 1:], a64, s64,
+                                       "fused_plan rigid"),
              "ms": _time_ms(lambda: rounds(ts.fused_round_cuda, pop, x2, live)),
+             "plan_ms": _time_ms(lambda: ts.fused_plan_cuda(pop, x2, po)),
              "plain_ms": _time_ms(lambda: rounds(ts.fused_round_reference, pop,
                                                  x2, live), reps=5),
              "library_ms": None}
 
-    # Host time of the cache hits a rounds-mode engine call makes (plan and
-    # operand tables; both keys hold the plan's n-long identity mask).
+    # Host time of the lookups a rounds-mode engine call makes: the plan
+    # (keyed without its mask) and its operand list (kept on the plan).
     reps = 20
+    c = plan_cluster_size(n, 1)
     t0 = time.perf_counter()
     for _ in range(reps):
-        _round_index_tensors(get_plan("ladner_fischer", n), device)
+        _plan_operands(get_plan("ladner_fischer", n), device, c)
     lookup_ms = (time.perf_counter() - t0) / reps * 1e3
 
     head = by_case["ladner_fischer/add_d1"]
-    return {
+    line = {
         "name": ts.FUSED_NAME, "route": "cuda", "source": ts.FUSED_SOURCE,
         "replaces": ts.FUSED_REPLACES, "shape": [n, 1], "op": "add",
         "circuit": "ladner_fischer", "max_abs_err": err,
         "ms": head["ms"], "ms_per_round": head["ms_per_round"],
-        "graph_ms": head["graph_ms"], "plan_lookup_ms": lookup_ms,
-        "scan_ms": head["scan_ms"], "plain_ms": head["plain_ms"],
+        "graph_ms": head["graph_ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"], "library_call": "torch.cumsum(x, 0)",
-        "timing": "ms, plain_ms: all rounds of the plan through the kernel "
-                  "wrapper / the plain version; graph_ms: the same launches "
-                  "replayed from a CUDA graph; scan_ms: engine.scan(backend="
-                  "'pallas'); plan_lookup_ms: host time of its cache hits; "
-                  "plan_s: host plan compilation; bound_ms: the rounds' "
-                  "bytes summed",
-        "by_case": by_case, "rigid_compose": rigid,
+        "plan_ms": head["plan_ms"], "plan_graph_ms": head["plan_graph_ms"],
+        "cluster": head["cluster"], "operand_bytes": head["operand_bytes"],
+        "plan_bound_ms": head["plan_bound_ms"],
+        "plan_bound_by": head["plan_bound_by"],
+        "plan_max_abs_err": plan_err, "plan_lookup_ms": lookup_ms,
+        "scan_ms": head["scan_ms"],
+        "timing": "ms, plain_ms: all rounds of the plan through the "
+                  "per-round kernel's wrapper / its plain version; graph_ms: "
+                  "the same launches replayed from a CUDA graph; plan_ms, "
+                  "plan_graph_ms: the whole plan as one fused_plan launch "
+                  "on `cluster` CTAs, through its wrapper / from a graph; "
+                  "scan_ms: engine.scan(backend='pallas') (one fused_plan "
+                  "launch); plan_lookup_ms: host time of its plan and "
+                  "operand lookups; plan_s: host plan compilation; "
+                  "bound_ms: the rounds' bytes summed (dense tables); "
+                  "plan_bound_ms: x, y and the operand list once",
+        "by_case": by_case, "by_cluster": by_cluster, "rigid_compose": rigid,
     }
+    row = {
+        "name": ts.PLAN_NAME, "route": "cuda", "source": ts.FUSED_SOURCE,
+        "replaces": ts.FUSED_REPLACES, "shape": [n, 1], "op": "add",
+        "circuit": "ladner_fischer", "cluster": head["cluster"],
+        "max_abs_err": plan_err, "ms": head["plan_ms"],
+        "graph_ms": head["plan_graph_ms"], "plain_ms": head["plan_plain_ms"],
+        "bound_ms": head["plan_bound_ms"], "bound_by": head["plan_bound_by"],
+        "library_ms": head["library_ms"], "library_call": "torch.cumsum(x, 0)",
+        "operand_bytes": head["operand_bytes"], "scan_ms": head["scan_ms"],
+    }
+    return line, row
 
 
 def run_series(device, n_frames: int, size: int, **cfg_kw) -> dict:
@@ -815,13 +913,20 @@ def run_scan_engine(device, n: int, series_len: int, rounds_n: int) -> dict:
     where_r = valid_r.tolist()
     xf = _floats(n, 1, device, seed=16)[:, 0]
     cummax = torch.cummax(xf, 0).values
+    # Rows of width 4 over twice rounds_n: on the card a buffer too large
+    # for one cluster (the size rule), so a launch a non-empty round.
+    xw = _ints(2 * rounds_n, 4, device, seed=17)
+    exact_w = torch.cumsum(xw.double(), 0).float()
     # Plans are compiled here, before the timed calls (as a session would
-    # hold them); each rounds-mode call launches fused_round once a
-    # non-empty round.
-    lf = _live_rounds(get_plan("ladner_fischer", rounds_n))
-    lf_masked = _live_rounds(get_plan("ladner_fischer", rounds_n,
-                                      mask=[not v for v in where_r]))
-    bl = _live_rounds(get_plan("blelloch", rounds_n))
+    # hold them): each rounds-mode call that fits a cluster launches
+    # fused_plan once, the wide one fused_round once a non-empty round.
+    for alg, m, mask in (("ladner_fischer", rounds_n, None),
+                         ("ladner_fischer", rounds_n,
+                          [not v for v in where_r]),
+                         ("blelloch", rounds_n, None)):
+        get_plan(alg, m, mask=mask)
+    wide = _live_rounds(get_plan("ladner_fischer", 2 * rounds_n))
+    plan1 = {"fused_plan": 1}
     tiles = {"tile_local_scan": 1, "tile_apply": 1}
 
     calls = [
@@ -847,14 +952,18 @@ def run_scan_engine(device, n: int, series_len: int, rounds_n: int) -> dict:
         ("pallas_rounds_add",
          lambda: scan(torch.add, xr, backend="pallas",
                       algorithm="ladner_fischer"),
-         lambda y: torch.equal(y, exact[:rounds_n]), {"fused_round": lf}),
+         lambda y: torch.equal(y, exact[:rounds_n]), plan1),
         ("pallas_rounds_add_masked",
          lambda: scan(torch.add, xr, backend="pallas",
                       algorithm="ladner_fischer", where=where_r),
-         lambda y: torch.equal(y, masked_r), {"fused_round": lf_masked}),
+         lambda y: torch.equal(y, masked_r), plan1),
         ("pallas_rounds_add_blelloch",
          lambda: scan(torch.add, xr, backend="pallas", algorithm="blelloch"),
-         lambda y: torch.equal(y, exact[:rounds_n]), {"fused_round": bl}),
+         lambda y: torch.equal(y, exact[:rounds_n]), plan1),
+        ("pallas_rounds_add_wide",
+         lambda: scan(torch.add, xw, backend="pallas",
+                      algorithm="ladner_fischer"),
+         lambda y: torch.equal(y, exact_w), {"fused_round": wide}),
         ("pallas_tiles_add_16",
          lambda: scan(torch.add, x, backend="pallas",
                       num_blocks=PALLAS_TILES[0]),
@@ -1106,39 +1215,51 @@ def check_flash_attention(device) -> dict:
 
 # The redesigned kernels' previous designs (flash_attention with the bf16
 # products on the f32 CUDA cores; lookback_scan with each thread's strided
-# rows read twice and a one-tile-at-a-time walk): their times as PERF.md
-# records them, used when --previous-csrc does not name the sources to
-# build and time them in this run.
+# rows read twice and a one-tile-at-a-time walk; fused_round as one launch
+# a round of the plan; tile_apply as one thread a row): their times as
+# PERF.md records them, used when --previous-csrc does not name the sources
+# to build and time them in this run.
 PREVIOUS_RECORDED = {
     "flash_attention": {"ms": 0.543, "origin": "PERF.md §6 row 8, the "
                         "previous design (NVIDIA H100 80GB HBM3, 700.00 W)"},
     "lookback_scan": {"ms": 0.313, "origin": "PERF.md §6 row 2, the "
                       "previous design (NVIDIA H100 80GB HBM3, 700.00 W)"},
+    "fused_round": {"ms": 0.582, "graph_ms": 0.0361,
+                    "origin": "PERF.md §6 row 3, the previous design: 23 "
+                    "per-round launches (NVIDIA H100 80GB HBM3, 700.00 W)"},
+    "tile_apply": {"ms": 0.0848, "origin": "PERF.md §6 row 5, the previous "
+                   "design (NVIDIA H100 80GB HBM3, 700.00 W)"},
+}
+
+# The kernels whose previous design --previous-csrc builds (this slice's
+# redesigns; the earlier ones are quoted from PERF.md): each one's library
+# (csrc/<source>.cu) and the argument types of its C entry <name>_launch.
+_PREVIOUS_ENTRIES = {
+    "fused_round": ("fused_round",
+                    [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+                    + [ctypes.c_int, ctypes.c_void_p]),
+    "tile_apply": ("tile_scan",
+                   [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p]),
 }
 
 
 def _previous_launch(csrc: str, name: str):
     """Kernel ``name`` built from another checkout's ``csrc`` directory with
     the port's nvcc flags; returns its typed launch entry point (the C
-    interfaces of both redesigned kernels are unchanged)."""
-    import ctypes
-
+    interfaces of the redesigned kernels are unchanged)."""
     from repro_torch.kernels import _cuda
 
-    out = os.path.join(_cuda.BUILD_DIR, "previous", f"lib{name}.so")
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", out,
-                    os.path.join(csrc, f"{name}.cu")], check=True,
-                   capture_output=True, text=True)
+    source, argtypes = _PREVIOUS_ENTRIES[name]
+    out = os.path.join(_cuda.BUILD_DIR, "previous", f"lib{source}.so")
+    if not os.path.exists(out):
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", out,
+                        os.path.join(csrc, f"{source}.cu")], check=True,
+                       capture_output=True, text=True)
     fn = getattr(ctypes.CDLL(out), f"{name}_launch")
     fn.restype = ctypes.c_int
-    if name == "flash_attention":
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
-                       + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
-                                               ctypes.c_void_p])
-    else:
-        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 8
-                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    fn.argtypes = argtypes
     return fn
 
 
@@ -1157,17 +1278,29 @@ def _hgmma_count(name: str) -> int:
     return sum(1 for ln in sass.splitlines() if "HGMMA" in ln)
 
 
-def check_redesigns(device, kfa: dict, kl: dict,
+def check_redesigns(device, kfa: dict, kl: dict, kf: dict, ka: dict,
                     previous_csrc: str = None) -> dict:
-    """The two redesigned kernels beside their previous designs at the
-    main path's shapes: flash_attention bf16 at (128, 512, 112) and
-    lookback_scan add at 2^24 x 1.  With ``previous_csrc`` the previous
-    sources are built and timed here in turns (previous, new, new,
-    previous); else the previous times are PERF.md's.  The new kernels'
-    correctness is held in check_flash_attention / check_lookback_scan."""
+    """The redesigned kernels beside their previous designs at the main
+    path's shapes: flash_attention bf16 at (128, 512, 112), lookback_scan
+    add at 2^24 x 1, fused_round as Ladner-Fischer add at 2^16 x 1 (the
+    whole plan in one fused_plan launch against the previous design's
+    launch a round) and tile_apply add at 2^24 x 1 over 16 tiles.  With
+    ``previous_csrc`` this slice's previous sources (fused_round,
+    tile_apply) are built and timed here in turns (previous, new, new,
+    previous), through their launch entries and replayed from a CUDA
+    graph; else, and for the kernels of earlier slices (flash_attention,
+    lookback_scan), the previous times are PERF.md's.  The new kernels'
+    correctness is held in the check_* phases."""
+    from repro_torch.core.engine import get_plan
+    from repro_torch.core.engine.pallas_backend import (
+        _plan_operands, _round_index_tensors,
+    )
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import lookback_scan as lb
-    from repro_torch.kernels._tiling import default_num_tiles_cuda
+    from repro_torch.kernels import tile_scan as ts
+    from repro_torch.kernels._tiling import (
+        default_num_tiles_cuda, plan_cluster_size,
+    )
 
     cfg, _g, _l = _lm_shapes()
     bh, l, d = LM_BATCH * cfg.n_heads, LM_PROMPT, cfg.hd
@@ -1177,42 +1310,52 @@ def check_redesigns(device, kfa: dict, kl: dict,
     n = SCAN_N
     t = default_num_tiles_cuda(n)
     x = _ints(n, 1, device, seed=1)
+    rn = ROUNDS_N
+    plan = get_plan("ladner_fischer", rn)
+    live = [src for src in _round_index_tensors(plan, device)
+            if src is not None]
+    po = _plan_operands(plan, device, plan_cluster_size(rn, 1))
+    xr = _ints(rn, 1, device, seed=12)
+    at = TILE_COUNTS[0]
+    ploc, pparts = ts.tile_local_scan_reference(torch.add, x, at)
+    seeds = torch.cat([pparts[:1], torch.cumsum(pparts, 0)[:-1]])
     new = {"flash_attention": lambda: fa.flash_attention_cuda(q, k, v),
-           "lookback_scan": lambda: lb.lookback_scan_cuda(torch.add, x, t)}
+           "lookback_scan": lambda: lb.lookback_scan_cuda(torch.add, x, t),
+           "fused_round": lambda: ts.fused_plan_cuda(torch.add, xr, po)[0],
+           "tile_apply": lambda: ts.tile_apply_cuda(torch.add, ploc, seeds)}
     previous = {}
     if previous_csrc:
-        pf = _previous_launch(previous_csrc, "flash_attention")
-        pl = _previous_launch(previous_csrc, "lookback_scan")
+        pr, pa = (_previous_launch(previous_csrc, name)
+                  for name in _PREVIOUS_ENTRIES)
 
         def stream():
             return torch.cuda.current_stream(device).cuda_stream
 
-        def prev_flash():
-            out = torch.empty_like(q)
-            err = pf(1, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                     out.data_ptr(), bh, l, l, d, d ** -0.5, 1, stream())
+        def prev_rounds():
+            y = xr
+            for src in live:
+                out = torch.empty_like(y)
+                err = pr(0, 1, y.data_ptr(), src.data_ptr(), out.data_ptr(),
+                         rn, stream())
+                assert err == 0, err
+                y = out
+            return y
+
+        def prev_apply():
+            out = torch.empty((n, 1), device=device)
+            err = pa(0, 1, ploc.data_ptr(), seeds.data_ptr(), out.data_ptr(),
+                     at, n // at, stream())
             assert err == 0, err
             return out
 
-        def prev_lookback():
-            y = torch.empty_like(x)
-            status = torch.zeros((t, 1), dtype=torch.int32, device=device)
-            aggs = torch.empty((t, 1), device=device)
-            prefs = torch.empty((t, 1), device=device)
-            counter = torch.zeros((1,), dtype=torch.int32, device=device)
-            err = pl(0, 1, 0, x.data_ptr(), None, y.data_ptr(),
-                     status.data_ptr(), aggs.data_ptr(), prefs.data_ptr(),
-                     counter.data_ptr(), None, t, n // t, stream())
-            assert err == 0, err
-            return y
-
-        previous = {"flash_attention": prev_flash,
-                    "lookback_scan": prev_lookback}
+        previous = {"fused_round": prev_rounds, "tile_apply": prev_apply}
         # The previous kernels compute the same function.
-        _close_to(prev_flash(), fa.flash_attention_reference(q, k, v),
-                  *FLASH_TOL[torch.bfloat16], "previous flash_attention")
-        _require_equal(prev_lookback(), torch.cumsum(x, 0),
-                       "previous lookback_scan")
+        _require_equal(prev_rounds(), new["fused_round"](),
+                       "previous fused_round chain vs fused_plan")
+        _require_equal(prev_apply(), new["tile_apply"](),
+                       "previous tile_apply")
+    rows = {"flash_attention": kfa, "lookback_scan": kl, "fused_round": kf,
+            "tile_apply": ka}
     out = {}
     for name, fn in new.items():
         if name in previous:
@@ -1226,9 +1369,12 @@ def check_redesigns(device, kfa: dict, kl: dict,
                     "turns_ms": runs}
         else:
             ms = _time_ms(fn)
-            prev = {"previous_ms": PREVIOUS_RECORDED[name]["ms"],
-                    "previous_origin": PREVIOUS_RECORDED[name]["origin"]}
-        row = kfa if name == "flash_attention" else kl
+            rec = PREVIOUS_RECORDED[name]
+            prev = {"previous_ms": rec["ms"],
+                    "previous_origin": rec["origin"]}
+            if "graph_ms" in rec:
+                prev["previous_graph_ms"] = rec["graph_ms"]
+        row = rows[name]
         out[name] = {"ms": ms, "graph_ms": _graph_ms(fn), **prev,
                      "library_ms": row["library_ms"],
                      "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -1238,6 +1384,13 @@ def check_redesigns(device, kfa: dict, kl: dict,
     out["lookback_scan"].update(
         shape=[n, 1], tiles=t, walk_tiles_max=kl["walk_steps_max"],
         walk_warp_steps_max=-(-kl["walk_steps_max"] // LOOKBACK_STEP_TILES))
+    out["fused_round"].update(
+        shape=[rn, 1], circuit="ladner_fischer", rounds=len(live),
+        cluster=po.cluster, kernel="fused_plan (one launch; previous: "
+        "fused_round, a launch a round)",
+        bound_ms=kf["plan_bound_ms"], bound_by=kf["plan_bound_by"],
+        round_bound_ms=kf["bound_ms"])
+    out["tile_apply"].update(shape=[n, 1], tiles=at)
     return out
 
 
@@ -1508,9 +1661,11 @@ def main() -> int:
     ap.add_argument("--previous-csrc", default=None,
                     help="csrc directory of the kernels' previous designs "
                          "(e.g. from git archive of an earlier commit): "
-                         "build and time flash_attention and lookback_scan "
-                         "from there beside the current ones; without it "
-                         "the redesign line quotes PERF.md's times")
+                         "build and time fused_round (a launch a round) "
+                         "and tile_apply from there beside the current "
+                         "ones; without it, and for the kernels redesigned "
+                         "in earlier slices, the redesign line quotes "
+                         "PERF.md's times")
     args = ap.parse_args()
 
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -1546,13 +1701,17 @@ def main() -> int:
         "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
     })
 
-    libraries = ["warp_ncc", "lookback_scan", "tile_scan", "fused_round",
-                 "chunk_scan", "flash_attention"]
-    secs = _cuda.build(libraries)
+    # Each library (csrc/<name>.cu) and the kernels it holds.
+    libraries = {"warp_ncc": ["warp_ncc"], "lookback_scan": ["lookback_scan"],
+                 "tile_scan": ["tile_local_scan", "tile_apply"],
+                 "fused_round": ["fused_round", "fused_plan"],
+                 "chunk_scan": ["chunk_local", "chunk_apply"],
+                 "flash_attention": ["flash_attention"]}
+    secs = _cuda.build(list(libraries))
     ptxas = {name: [ln.strip() for ln in _cuda.build_log(name).splitlines()
                     if "registers" in ln or "spill" in ln]
              for name in libraries}
-    _line("build", {"seconds": secs, "ptxas": ptxas})
+    _line("build", {"seconds": secs, "kernels": libraries, "ptxas": ptxas})
 
     k = check_warp_ncc(dev, power_w)
     _line("kernel warp_ncc", k)
@@ -1561,14 +1720,14 @@ def main() -> int:
     kt_local, kt_apply = check_tile_kernels(dev)
     _line("kernel tile_local_scan", kt_local)
     _line("kernel tile_apply", kt_apply)
-    kf = check_fused_round(dev)
+    kf, kp = check_fused_round(dev)
     _line("kernel fused_round", kf)
     kc_local, kc_apply = check_chunk_kernels(dev)
     _line("kernel chunk_local", kc_local)
     _line("kernel chunk_apply", kc_apply)
     kfa = check_flash_attention(dev)
     _line("kernel flash_attention", kfa)
-    redesign = check_redesigns(dev, kfa, kl, args.previous_csrc)
+    redesign = check_redesigns(dev, kfa, kl, kf, kt_apply, args.previous_csrc)
     _line("redesign", redesign)
     if redesign["flash_attention"]["hgmma_in_sass"] < 1:
         raise AssertionError("flash_attention's library has no HGMMA "
@@ -1598,7 +1757,7 @@ def main() -> int:
     kl["launches_series_compose"] = compose["lookback_scan_launches"]
     kl["launches_scan_engine"] = engine_launches.get("lookback_scan", 0)
     kl["launches"] = kl["launches_series_compose"] + kl["launches_scan_engine"]
-    for kt in (kt_local, kt_apply, kf):
+    for kt in (kt_local, kt_apply, kf, kp):
         kt["launches"] = kt["launches_scan_engine"] = engine_launches.get(
             kt["name"], 0)
     for kt in (kc_local, kc_apply, kfa):
@@ -1608,7 +1767,8 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     rows = []
-    for entry in (k, kl, kt_local, kt_apply, kf, kc_local, kc_apply, kfa):
+    for entry in (k, kl, kt_local, kt_apply, kf, kp, kc_local, kc_apply,
+                  kfa):
         if not entry["launches"] >= 1:
             raise AssertionError(f"{entry['name']} was never launched on "
                                  "the main path")

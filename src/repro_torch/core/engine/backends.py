@@ -15,8 +15,9 @@ zeroing), else None.  Registered backends:
   hierarchical  two-level reduce-then-scan (``engine/hierarchical.py``)
   decoupled  single-pass decoupled-lookback scan
              (``engine/decoupled_backend.py``)
-  pallas     plan rounds as ``fused_round`` kernels, or tiles over the tile
-             kernels (``engine/pallas_backend.py``)
+  pallas     a plan as one ``fused_plan`` kernel (or a ``fused_round``
+             kernel a round), or tiles over the tile kernels
+             (``engine/pallas_backend.py``)
 
 Not ported yet, registered as stubs that raise ``NotImplementedError``
 naming their ``ROADMAP.md`` item, so that a dispatch to one is loud:
@@ -59,10 +60,6 @@ def get_backend(name: str) -> Backend:
 
 def available_backends() -> List[str]:
     return sorted(_REGISTRY)
-
-
-def plan_key(plan: ExecutionPlan) -> Tuple:
-    return (plan.circuit.name, plan.n, plan.mask)
 
 
 def dtype_struct(xs) -> Tuple:

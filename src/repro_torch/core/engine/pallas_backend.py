@@ -4,10 +4,15 @@ Port of ``repro/core/engine/pallas_backend.py`` (the backend keeps its
 name, ``"pallas"``).  Two modes, selected by the width of the plan handed
 in (the same convention as the ``blocked`` backend):
 
-* ``plan.n == len(xs)``  → **rounds mode**: every non-empty plan round is
-  one ``fused_round`` launch (``kernels/tile_scan.py``), reading by index
-  from the round's operand table (``_tiling.round_sources``).  The tables go
-  to the device once per plan and device (``lowered_cache``).
+* ``plan.n == len(xs)``  → **rounds mode**: a plan whose (n, d) buffer
+  fits twice in the shared memory of one thread-block cluster of up to 16
+  CTAs (``_tiling.plan_cluster_size`` picks the size: n·d up to ~465k
+  floats) runs as one ``fused_plan`` launch over its compact operand list
+  (``_tiling.plan_operands``); a larger one runs one ``fused_round``
+  launch a non-empty round, reading the round's dense operand table
+  (``_tiling.round_sources``).  The size rule picks before any launch, and
+  a refused cluster launch raises.  The device operands hang off the plan
+  (``plan.scratch[("pallas", device)]``), built once a plan and device.
 * ``plan.n <  len(xs)``  → **tiles mode**: the paper's local–global–local
   decomposition, the local phases one ``tile_local_scan`` and one
   ``tile_apply`` launch; the plan drives the small global phase over
@@ -27,12 +32,22 @@ from typing import Any, Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels._tiling import round_sources
+from repro_torch.kernels._tiling import (
+    PlanOperands,
+    plan_cluster_size,
+    plan_operands,
+    round_sources,
+)
 from repro_torch.kernels.op_table import TABLE, KernelOpError, check_kernel_row
-from repro_torch.kernels.tile_scan import fused_round, tile_apply, tile_local_scan
+from repro_torch.kernels.tile_scan import (
+    fused_plan,
+    fused_round,
+    tile_apply,
+    tile_local_scan,
+)
 
 from .._tree import tree_flatten
-from .backends import exec_vector, lowered_cache, plan_key, register_backend
+from .backends import exec_vector, register_backend
 from .plan import ExecutionPlan
 
 Op = Callable[[Any, Any], Any]
@@ -55,18 +70,35 @@ def _as_2d(xs) -> Tuple[torch.Tensor, Tuple[int, ...]]:
     return x.reshape(n, d), tail
 
 
+def _lowering(plan: ExecutionPlan, device) -> dict:
+    """The backend's device operands of ``plan`` on ``device``, kept on the
+    plan itself: a lookup hashes a short key, never the plan's mask."""
+    key = ("pallas", str(device))
+    low = plan.scratch.get(key)
+    if low is None:
+        low = plan.scratch.setdefault(key, {})
+    return low
+
+
 def _round_index_tensors(plan: ExecutionPlan, device) -> Tuple[Optional[torch.Tensor], ...]:
-    """Per-round operand tables on ``device`` (None for an empty round),
-    cached on (plan, backend, device)."""
-    key = (plan_key(plan), "pallas", str(device))
-    tables = lowered_cache.get(key)
+    """Per-round operand tables on ``device`` (None for an empty round)."""
+    low = _lowering(plan, device)
+    tables = low.get("rounds")
     if tables is None:
-        tables = tuple(
+        tables = low["rounds"] = tuple(
             None if src is None else torch.as_tensor(src, device=device)
             for src in (round_sources(rnd, plan.n) for rnd in plan.rounds)
         )
-        lowered_cache.put(key, tables)
     return tables
+
+
+def _plan_operands(plan: ExecutionPlan, device, cluster: int) -> PlanOperands:
+    """The plan's compact operand list for ``cluster`` CTAs, on ``device``."""
+    low = _lowering(plan, device)
+    ops = low.get(("plan", cluster))
+    if ops is None:
+        ops = low[("plan", cluster)] = plan_operands(plan, cluster).to(device)
+    return ops
 
 
 def _check_on_card(op: Op, y2: torch.Tensor) -> None:
@@ -87,7 +119,15 @@ def exec_pallas(op: Op, plan: ExecutionPlan, xs, **_) -> Tuple[Any, Any]:
     _check_on_card(op, y2)
 
     if plan.n == n:
-        # Rounds mode: one fused_round launch per non-empty plan round.
+        cluster = plan_cluster_size(n, y2.shape[1])
+        if cluster is not None:
+            # Rounds mode, the whole plan in one launch on one cluster.
+            y2, total = fused_plan(op, y2, _plan_operands(plan, y2.device,
+                                                          cluster))
+            if total is not None:
+                total = total.reshape(tail)
+            return y2.reshape((n,) + tail), total
+        # Rounds mode, too large for a cluster: a launch a non-empty round.
         total = None
         for rnd, src in zip(plan.rounds, _round_index_tensors(plan, y2.device)):
             if rnd.capture_total is not None:

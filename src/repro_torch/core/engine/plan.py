@@ -22,10 +22,9 @@ as a vectorized JAX round, a Pallas kernel, a set of ppermute/all_gather
 collectives, or a virtual-time event batch.
 
 Plans are cached in a small LRU (:func:`get_plan`) keyed on
-``(circuit, n, identity-mask)``; backend-specific lowerings (one-hot
-gather/scatter matrices for the Pallas backend, permutation tables for the
-collective backend) hang off a second cache keyed additionally on backend and
-dtype-struct (:func:`repro_torch.core.engine.backends.lowered_cache`).
+``(circuit, n, identity-mask)``, the mask None when no wire is the identity;
+backend-specific device lowerings (the ``pallas`` backend's operand tables
+and lists) hang off the plan's ``scratch``.
 """
 
 from __future__ import annotations
@@ -258,10 +257,14 @@ class LRUCache:
 plan_cache = LRUCache(maxsize=256)
 
 
-def _mask_key(n: int, mask: Optional[Sequence[bool]]) -> Tuple[bool, ...]:
+def _mask_key(mask: Optional[Sequence[bool]]) -> Optional[Tuple[bool, ...]]:
+    """The cache key of an identity mask: None when no wire is the
+    identity (no mask, or one all False), so the common unmasked lookup
+    hashes no n-long tuple."""
     if mask is None:
-        return (False,) * n
-    return tuple(bool(m) for m in mask)
+        return None
+    key = tuple(bool(m) for m in mask)
+    return key if any(key) else None
 
 
 def get_plan(
@@ -285,8 +288,9 @@ def get_plan(
     if n_valid is not None:
         if mask is not None:
             raise ValueError("pass either mask or n_valid, not both")
-        mask = [i >= n_valid for i in range(circuit.n)]
-    key = (circuit.name, circuit.n, _mask_key(circuit.n, mask))
+        if n_valid < circuit.n:
+            mask = [i >= n_valid for i in range(circuit.n)]
+    key = (circuit.name, circuit.n, _mask_key(mask))
     plan = plan_cache.get(key)
     # Name+n almost always identifies the circuit (generators are pure); a
     # hand-built circuit reusing a registry name is detected by the equality

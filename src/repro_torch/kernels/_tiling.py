@@ -6,9 +6,12 @@ lookback) need the same plumbing around the kernel proper:
 
 * **round lowerings**: :func:`round_sources` (numpy) lowers a
   ``PlanRound``'s static gather/scatter index sets to the per-output-row
-  operand table the ``fused_round`` kernel reads; :func:`build_round_matrices`
-  keeps the reference's one-hot matrices, which the parity tests hand to the
-  reference's kernel;
+  operand table the ``fused_round`` kernel reads; :func:`plan_operands`
+  lowers a whole plan to the compact operand list the ``fused_plan`` kernel
+  reads, grouped for a cluster of :func:`plan_cluster_size` CTAs (the
+  size rule);
+  :func:`build_round_matrices` keeps the reference's one-hot matrices, which
+  the parity tests hand to the reference's kernel;
 * **tile sizing and padding** (:func:`default_num_tiles`,
   :func:`default_num_tiles_cuda`, :func:`pad_rows`) — kernels want ``n``
   divisible by the tile count; the pad rows repeat the last element so a
@@ -98,6 +101,175 @@ def round_sources(rnd, n: int) -> Optional[np.ndarray]:
     src[out[:m], 1] = rnd.b_idx
     src[out[m:], 0] = rnd.mv_src
     return src
+
+
+# ---------------------------------------------------------------------------
+# a whole plan on one thread-block cluster (fused_plan)
+# ---------------------------------------------------------------------------
+
+#: Shared memory one CTA may hold on sm_90 (the card's opt-in limit,
+#: ``cudaDevAttrMaxSharedMemoryPerBlockOptin``, 227 KB).
+PLAN_SMEM_BYTES = 232_448
+#: The largest cluster Hopper schedules (non-portable above 8).
+PLAN_MAX_CLUSTER = 16
+#: Floats of the plan buffer a CTA holds before the size rule adds CTAs:
+#: two a thread of its 1,024.
+PLAN_FLOATS_PER_CTA = 2048
+#: Round flags of a plan's operand list (``PlanOperands.flags``; the same
+#: bits in ``csrc/fused_round.cu``).
+PLAN_CLUSTER_BARRIER = 1
+PLAN_LOCAL_READS = 2
+#: Set on a triple's ``dst`` when the next live round writes that row too,
+#: so the kernel's copy forward skips it (``PlanOperands.ops``).
+PLAN_REWRITTEN = 1 << 30
+
+
+def plan_rows_per(n: int, cluster: int) -> int:
+    """Rows each CTA of a ``cluster``-CTA plan owns: ceil(n / cluster),
+    rounded up to a multiple of 4 so that every CTA's slice of an (n, d)
+    float32 buffer starts on 16 bytes."""
+    return 4 * -(-(-(-n // cluster)) // 4)
+
+
+def plan_stride(n: int, d: int, cluster: int) -> int:
+    """Floats of one CTA slice (one of its two buffers), a multiple of 4."""
+    return 4 * -(-(plan_rows_per(n, cluster) * d) // 4)
+
+
+def plan_smem_bytes(n: int, d: int, cluster: int) -> int:
+    """Shared memory a CTA needs to hold its slice of the buffer twice."""
+    return 2 * 4 * plan_stride(n, d, cluster)
+
+
+def plan_min_cluster(n: int, d: int) -> Optional[int]:
+    """The smallest power-of-two cluster, at most :data:`PLAN_MAX_CLUSTER`,
+    whose CTAs hold an (n, d) float32 plan buffer twice in their shared
+    memory; None when none does."""
+    c = 1
+    while c <= PLAN_MAX_CLUSTER:
+        if plan_smem_bytes(n, d, c) <= PLAN_SMEM_BYTES:
+            return c
+        c *= 2
+    return None
+
+
+def plan_cluster_size(n: int, d: int) -> Optional[int]:
+    """The cluster a plan over (n, d) rows runs on: from the smallest that
+    holds its buffer, doubled while a CTA would hold more than
+    :data:`PLAN_FLOATS_PER_CTA` floats, up to :data:`PLAN_MAX_CLUSTER`;
+    None when no cluster holds it (the plan then runs a launch a round).
+    More CTAs split a round's operands finer at a dearer barrier: on the
+    H100, 16 CTAs take Ladner-Fischer at 2^16 x 1 1.6x faster than the 4
+    that hold it, while 1,024 x 1 runs fastest on one and 4,096 x 3 on 4-8
+    (``tools/kernel_variants.py fused_round C``, PERF.md §6)."""
+    c = plan_min_cluster(n, d)
+    if c is None:
+        return None
+    while c < PLAN_MAX_CLUSTER and c * PLAN_FLOATS_PER_CTA < n * d:
+        c *= 2
+    return c
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanOperands:
+    """A plan's compact operand list for the ``fused_plan`` kernel.
+
+    ``ops`` (entries, 3) int32: one ``(dst, a, b)`` triple a combine
+    (``y[dst] = op(y[a], y[b])``) or move (``b = -1``: ``y[dst] = y[a]``),
+    none for a kept row; the plan's non-empty rounds in order, each grouped
+    by the CTA owning ``dst`` (``dst // rows_per``).  ``dst`` carries
+    :data:`PLAN_REWRITTEN` where the next round writes the same row;
+    :meth:`round_ops` gives the plain triples.  The triples of live
+    round k and CTA q are ``ops[bounds[k*C + q] : bounds[k*C + q + 1]]``;
+    ``offsets`` holds ``bounds`` as an int32 tensor beside ``ops``.
+    ``flags`` (rounds,) int32, per round: :data:`PLAN_CLUSTER_BARRIER`
+    where a cluster barrier must follow it (else one among each CTA's
+    threads suffices: it and the next round, if any, are CTA-local), and
+    :data:`PLAN_LOCAL_READS` where it is CTA-local (every operand is a row
+    of the CTA that owns ``dst``).  The pre-round value of row ``capture_wire``
+    at live round ``capture_round`` (``rounds``: after the last) is the
+    plan's total; -1 for none.
+    """
+
+    n: int
+    cluster: int
+    rows_per: int
+    ops: torch.Tensor
+    offsets: torch.Tensor
+    bounds: Tuple[int, ...]
+    flags: torch.Tensor
+    capture_round: int = -1
+    capture_wire: int = -1
+
+    @property
+    def rounds(self) -> int:
+        return (len(self.bounds) - 1) // self.cluster
+
+    @property
+    def entries(self) -> int:
+        return self.bounds[-1]
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the list on the device (triples, offsets, flags)."""
+        return 4 * (3 * self.entries + len(self.bounds) + self.rounds)
+
+    def round_ops(self, k: int) -> torch.Tensor:
+        """The ``(dst, a, b)`` triples of live round ``k``, all CTAs."""
+        c = self.cluster
+        t = self.ops[self.bounds[k * c] : self.bounds[(k + 1) * c]].clone()
+        t[:, 0] &= PLAN_REWRITTEN - 1
+        return t
+
+    def to(self, device) -> "PlanOperands":
+        return dataclasses.replace(self, ops=self.ops.to(device),
+                                   offsets=self.offsets.to(device),
+                                   flags=self.flags.to(device))
+
+
+def plan_operands(plan, cluster: int = 1) -> PlanOperands:
+    """Lower an ExecutionPlan to its compact operand list for a cluster of
+    ``cluster`` CTAs (host tensors; built once a plan and cluster size)."""
+    if cluster < 1:
+        raise ValueError(f"cluster must be >= 1, got {cluster}")
+    n = plan.n
+    rows_per = plan_rows_per(n, cluster)
+    parts, counts, local = [], [], []
+    cap_round = cap_wire = -1
+    for rnd in plan.rounds:
+        if rnd.capture_total is not None:
+            cap_round, cap_wire = len(parts), int(rnd.capture_total)
+        if not rnd.num_combines and not rnd.num_moves:
+            continue
+        dst = rnd.upd_idx
+        a = np.concatenate([rnd.a_idx, rnd.mv_src])
+        b = np.concatenate([rnd.b_idx,
+                            np.full(rnd.num_moves, -1, dtype=np.int32)])
+        owner = dst // rows_per
+        order = np.argsort(owner, kind="stable")
+        parts.append(np.stack([dst, a, b], axis=1)[order].astype(np.int32))
+        counts.append(np.bincount(owner, minlength=cluster))
+        local.append(bool(((a // rows_per == owner)
+                           & ((b < 0) | (b // rows_per == owner))).all()))
+    for k in range(len(parts) - 1):
+        later = np.isin(parts[k][:, 0], parts[k + 1][:, 0])
+        parts[k][later, 0] |= PLAN_REWRITTEN
+    ops = (np.concatenate(parts) if parts
+           else np.zeros((0, 3), dtype=np.int32))
+    bounds = np.concatenate([[0], np.cumsum(np.concatenate(counts))
+                             if counts else []]).astype(np.int64)
+    local.append(True)   # after the last round only its own CTA reads
+    flags = [(0 if local[k] and local[k + 1] else PLAN_CLUSTER_BARRIER)
+             | (PLAN_LOCAL_READS if local[k] else 0)
+             for k in range(len(parts))]
+    return PlanOperands(
+        n=n, cluster=cluster, rows_per=rows_per,
+        ops=torch.from_numpy(np.ascontiguousarray(ops)),
+        offsets=torch.from_numpy(bounds.astype(np.int32)),
+        bounds=tuple(int(v) for v in bounds),
+        flags=torch.tensor(flags, dtype=torch.int32),
+        capture_round=cap_round, capture_wire=cap_wire,
+    )
 
 
 # ---------------------------------------------------------------------------

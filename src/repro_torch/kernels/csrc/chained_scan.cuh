@@ -113,8 +113,16 @@ constexpr size_t piece_smem_bytes(int rows) {
   return sizeof(float) * ((size_t)rows * W + ((size_t)rows * W >> 5) + 1);
 }
 
+// Shared-memory index of float i: padded (padi) or dense.
+template <bool PAD>
+__device__ __forceinline__ int smem_index(int i) {
+  return PAD ? padi(i) : i;
+}
+
 // Floats src[0 .. n) into buf, by 16-byte loads of the aligned words that
 // cover them (a word is never read past the page of an element it holds).
+// THREADS threads call it (the block); PAD picks padi's layout in buf.
+template <int THREADS = kThreads, bool PAD = true>
 __device__ __forceinline__ void load_floats(float* buf,
                                             const float* __restrict__ src,
                                             int n) {
@@ -122,14 +130,14 @@ __device__ __forceinline__ void load_floats(float* buf,
   const float4* base = reinterpret_cast<const float4*>(a0 & ~(uintptr_t)15);
   const int off = (int)((a0 & 15) >> 2);
   const int nq = (off + n + 3) >> 2;
-  for (int qi = threadIdx.x; qi < nq; qi += kThreads) {
+  for (int qi = threadIdx.x; qi < nq; qi += THREADS) {
     const float4 v = __ldg(base + qi);
     const float e[4] = {v.x, v.y, v.z, v.w};
     const int i0 = 4 * qi - off;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int i = i0 + j;
-      if (i >= 0 && i < n) buf[padi(i)] = e[j];
+      if (i >= 0 && i < n) buf[smem_index<PAD>(i)] = e[j];
     }
   }
 }
@@ -137,22 +145,24 @@ __device__ __forceinline__ void load_floats(float* buf,
 // buf's floats [0 .. n) to dst: 16-byte stores where a word lies wholly
 // inside, single floats at the two ends (the neighbours' words belong to
 // other blocks).
+template <int THREADS = kThreads, bool PAD = true>
 __device__ __forceinline__ void store_floats(float* __restrict__ dst,
                                              const float* buf, int n) {
   const uintptr_t a0 = reinterpret_cast<uintptr_t>(dst);
   float4* base = reinterpret_cast<float4*>(a0 & ~(uintptr_t)15);
   const int off = (int)((a0 & 15) >> 2);
   const int nq = (off + n + 3) >> 2;
-  for (int qi = threadIdx.x; qi < nq; qi += kThreads) {
+  for (int qi = threadIdx.x; qi < nq; qi += THREADS) {
     const int i0 = 4 * qi - off;
     if (i0 >= 0 && i0 + 3 < n) {
-      base[qi] = make_float4(buf[padi(i0)], buf[padi(i0 + 1)],
-                             buf[padi(i0 + 2)], buf[padi(i0 + 3)]);
+      base[qi] = make_float4(
+          buf[smem_index<PAD>(i0)], buf[smem_index<PAD>(i0 + 1)],
+          buf[smem_index<PAD>(i0 + 2)], buf[smem_index<PAD>(i0 + 3)]);
     } else {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int i = i0 + j;
-        if (i >= 0 && i < n) dst[i] = buf[padi(i)];
+        if (i >= 0 && i < n) dst[i] = buf[smem_index<PAD>(i)];
       }
     }
   }

@@ -21,9 +21,18 @@
 //    tile would leave 116 of the 132 SMs idle.  The last chunk of a tile
 //    writes the tile's total.  The chunk board (status, aggregates,
 //    prefixes) is scratch the wrapper allocates.
-//  * tile_apply: one thread a row over the whole (T*K) output, so it fills
-//    the card whatever T is: out = op(seeds[tile], local) for tile > 0 and
-//    local for tile 0.
+//  * tile_apply: out = op(seeds[tile], local) for tile > 0 and local for
+//    tile 0, streamed.  A flat 1-D grid of blocks, each one chunk of one
+//    tile (one division a block, none a row; grid.y could not carry the
+//    thousands of tiles of device phase 1), the tile's seed row loaded once
+//    a block into registers.  For the lane-wise entries (add, max) the
+//    tile's k*d contiguous floats are float4 words, kApplyLoads 16-byte
+//    loads in flight a thread; float f's seed lane is f % d (every tile
+//    starts on a multiple of d), and the floats before the tile's first
+//    whole word and after its last are done one at a time.  rigid_compose
+//    combines whole 3-float rows: a chunk of kApplyRows rows goes through
+//    shared memory by chained_scan.cuh's 16-byte loader and storer.  Tile 0
+//    takes the same path without the operator.
 
 #include <cuda_runtime.h>
 
@@ -33,26 +42,104 @@ namespace {
 
 using namespace scan_ops;
 
+constexpr int kApplyLoads = 4;                       // float4s in flight
+constexpr int kApplyQuads = kThreads * kApplyLoads;  // float4s a block
+constexpr int kApplyRows = 1024;                     // rows a block (rigid)
+
+// op(seed, v) on one lane of a lane-wise entry.
+template <int OP>
+__device__ __forceinline__ float lane_op(float seed, float v) {
+  Row<1> a, b;
+  a.v[0] = seed;
+  b.v[0] = v;
+  return Op<OP, 1>::template apply<1>(a, b).v[0];
+}
+
+// Float f (a global index) of a tile whose seed row is s, folded.
+template <int OP, int D>
+__device__ __forceinline__ float fold(const float (&s)[D], long long f,
+                                      float v) {
+  return lane_op<OP>(s[(int)(f % D)], v);
+}
+
 template <int OP, int D>
 __global__ void __launch_bounds__(kThreads)
-tile_apply_kernel(const float* __restrict__ local,  // (t*k, D)
-                  const float* __restrict__ seeds,  // (t, D)
-                  float* __restrict__ out,          // (t*k, D)
-                  long long rows, int k) {
-  using C = Combine<OP, D, false>;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       r < rows; r += stride) {
-    const long long tile = r / k;
-    Row<D> v = load_row<D>(local + r * D);
-    if (tile > 0) v = C::apply(load_row<D>(seeds + tile * D), v);
-    store_row<D>(out + r * D, v);
+tile_apply_lanes_kernel(const float* __restrict__ local,  // (t*k*D), 16 B
+                        const float* __restrict__ seeds,  // (t, D)
+                        float* __restrict__ out,          // (t*k*D), 16 B
+                        long long tile_floats, int chunks) {
+  const int tile = blockIdx.x / chunks;
+  const int c = blockIdx.x - tile * chunks;
+  const bool apply = tile > 0;
+  float s[D];
+#pragma unroll
+  for (int j = 0; j < D; ++j) s[j] = apply ? __ldg(seeds + tile * D + j) : 0.f;
+  const long long f0 = (long long)tile * tile_floats;
+  const long long f1 = f0 + tile_floats;
+  // The tile's whole words [qa, qb); the floats outside them one by one.
+  const long long qa = (f0 + 3) >> 2;
+  const long long qb = f1 >> 2;
+  const long long head_end = qb > qa ? 4 * qa : f1;
+  const long long tail_start = qb > qa ? 4 * qb : f1;
+
+  const float4* src = reinterpret_cast<const float4*>(local);
+  float4* dst = reinterpret_cast<float4*>(out);
+  const long long q0 = qa + (long long)c * kApplyQuads + threadIdx.x;
+  float4 v[kApplyLoads];
+#pragma unroll
+  for (int u = 0; u < kApplyLoads; ++u) {
+    const long long q = q0 + u * kThreads;
+    if (q < qb) v[u] = __ldg(src + q);
+  }
+#pragma unroll
+  for (int u = 0; u < kApplyLoads; ++u) {
+    const long long q = q0 + u * kThreads;
+    if (q >= qb) continue;
+    if (apply) {
+      v[u].x = fold<OP, D>(s, 4 * q, v[u].x);
+      v[u].y = fold<OP, D>(s, 4 * q + 1, v[u].y);
+      v[u].z = fold<OP, D>(s, 4 * q + 2, v[u].z);
+      v[u].w = fold<OP, D>(s, 4 * q + 3, v[u].w);
+    }
+    dst[q] = v[u];
+  }
+  // Head (< 8 floats when the tile holds no whole word) and tail (< 4).
+  if (c == 0 && threadIdx.x < 8) {
+    const long long f = f0 + threadIdx.x;
+    if (f < head_end) {
+      out[f] = apply ? fold<OP, D>(s, f, local[f]) : local[f];
+    }
+  }
+  if (c == chunks - 1 && threadIdx.x < 4) {
+    const long long f = tail_start + threadIdx.x;
+    if (f < f1) out[f] = apply ? fold<OP, D>(s, f, local[f]) : local[f];
   }
 }
 
-int apply_blocks(long long rows) {
-  const long long want = (rows + kThreads - 1) / kThreads;
-  return (int)(want < (1 << 20) ? (want > 0 ? want : 1) : (1 << 20));
+template <int OP, int D>
+__global__ void __launch_bounds__(kThreads)
+tile_apply_rows_kernel(const float* __restrict__ local,  // (t*k, D)
+                       const float* __restrict__ seeds,  // (t, D)
+                       float* __restrict__ out,          // (t*k, D)
+                       int k, int chunks) {
+  using C = Combine<OP, D, false>;
+  // kApplyRows rows of D floats, one pad float every 32 (padi).
+  __shared__ float buf[kApplyRows * D + (kApplyRows * D >> 5) + 1];
+  const int tile = blockIdx.x / chunks;
+  const int c = blockIdx.x - tile * chunks;
+  const int r0 = c * kApplyRows;
+  const int m = min(kApplyRows, k - r0);
+  const size_t f0 = ((size_t)tile * k + r0) * D;
+  load_floats(buf, local + f0, m * D);
+  __syncthreads();
+  if (tile > 0) {
+    const Row<D> s = load_row<D>(seeds + (size_t)tile * D);
+    for (int r = threadIdx.x; r < m; r += kThreads) {
+      smem_store_row<D>(buf, r, C::apply(s, smem_row<D>(buf, r)));
+    }
+    __syncthreads();
+  }
+  store_floats(out + f0, buf, m * D);
 }
 
 template <int OP, int D>
@@ -70,10 +157,22 @@ int launch_local(const void* x, void* local, void* partials, void* status,
 template <int OP, int D>
 int launch_apply(const void* local, const void* seeds, void* out, int t, int k,
                  cudaStream_t st) {
-  const long long rows = (long long)t * k;
-  tile_apply_kernel<OP, D><<<apply_blocks(rows), kThreads, 0, st>>>(
-      static_cast<const float*>(local), static_cast<const float*>(seeds),
-      static_cast<float*>(out), rows, k);
+  const float* l = static_cast<const float*>(local);
+  const float* s = static_cast<const float*>(seeds);
+  float* o = static_cast<float*>(out);
+  if constexpr (OP == kOpRigid) {
+    const int chunks = (k + kApplyRows - 1) / kApplyRows;
+    if ((long long)t * chunks > 0x7fffffffll) return (int)cudaErrorInvalidValue;
+    tile_apply_rows_kernel<OP, D><<<t * chunks, kThreads, 0, st>>>(
+        l, s, o, k, chunks);
+  } else {
+    const long long tile_floats = (long long)k * D;
+    const long long words = (tile_floats + 3) / 4;
+    const int chunks = (int)((words + kApplyQuads - 1) / kApplyQuads);
+    if ((long long)t * chunks > 0x7fffffffll) return (int)cudaErrorInvalidValue;
+    tile_apply_lanes_kernel<OP, D><<<t * chunks, kThreads, 0, st>>>(
+        l, s, o, tile_floats, chunks);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -106,11 +205,15 @@ extern "C" int tile_local_scan_launch(int op, int d, const void* x,
   });
 }
 
+// tile_apply: local and out (t*k, d), both 16-byte aligned; seeds (t, d).
 extern "C" int tile_apply_launch(int op, int d, const void* local,
                                  const void* seeds, void* out, int t, int k,
                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (t < 1 || k < 1) return (int)cudaErrorInvalidValue;
+  if (t < 1 || k < 1 || (reinterpret_cast<uintptr_t>(local) |
+                         reinterpret_cast<uintptr_t>(out)) & 15) {
+    return (int)cudaErrorInvalidValue;
+  }
   return dispatch_entry(op, d, [&](auto e) {
     using E = decltype(e);
     return launch_apply<E::op, E::d>(local, seeds, out, t, k, st);

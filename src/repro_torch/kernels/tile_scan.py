@@ -8,6 +8,11 @@ hierarchical array paths:
   op(y[a], y[b])`` for combined rows and ``y[src]`` for the rest, read by
   index from the round's operand table (``_tiling.round_sources``; the
   reference multiplies one-hot matrices instead);
+* :func:`fused_plan` — every round of a plan in one launch, the buffer
+  resident in the shared memory of one thread-block cluster, reading the
+  plan's compact operand list (``_tiling.plan_operands``): what the
+  reference's chain of ``fused_round`` calls computes, with the plan's
+  captured total;
 * :func:`tile_local_scan` — per-tile inclusive scans plus the tile totals
   for the global phase of the paper's §4.1 local–global–local scan;
 * :func:`tile_apply` — folds each tile's exclusive global prefix into its
@@ -16,19 +21,19 @@ hierarchical array paths:
 The small global phase over the tile totals runs outside (the engine's
 vector executor on the plan).  Each function takes its route from where its
 tensors lie: CPU tensors run the plain PyTorch version; CUDA tensors launch
-``csrc/fused_round.cu`` or ``csrc/tile_scan.cu`` (built at first use) or
-raise.
+``csrc/fused_round.cu`` (``fused_round`` and ``fused_plan``) or
+``csrc/tile_scan.cu`` (built at first use) or raise.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
 from . import _cuda
-from ._tiling import CUDA_TILE_ROWS
+from ._tiling import CUDA_TILE_ROWS, PlanOperands, plan_stride
 from .lookback_scan import doubling_scan
 from .op_table import KERNEL_OPS, check_kernel_row
 
@@ -40,6 +45,8 @@ FUSED_NAME = "fused_round"
 FUSED_SOURCE = "src/repro_torch/kernels/csrc/fused_round.cu"
 FUSED_REPLACES = "src/repro/kernels/tile_scan.py:50"
 FUSED_LAUNCHES = _cuda.launch_counter(FUSED_NAME)
+PLAN_NAME = "fused_plan"
+PLAN_LAUNCHES = _cuda.launch_counter(PLAN_NAME)
 LOCAL_NAME = "tile_local_scan"
 APPLY_NAME = "tile_apply"
 LOCAL_REPLACES = "src/repro/kernels/tile_scan.py:126"
@@ -85,7 +92,7 @@ def fused_round_cuda(op: Op, y: torch.Tensor, src: torch.Tensor) -> torch.Tensor
         if sc.data_ptr() % 8:
             sc = sc.clone()
         out = torch.empty_like(yc)
-        fn, error_string = _fused_entry()
+        fn, _plan, error_string = _fused_entries()
         err = fn(KERNEL_OPS[name], d, yc.data_ptr(), sc.data_ptr(),
                  out.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, FUSED_NAME, error_string)
@@ -107,17 +114,102 @@ def fused_round(op: Op, y: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     return fused_round_cuda(op, y, src)
 
 
-def _fused_entry():
-    """The fused_round library's launch entry and error string, typed."""
+def _fused_entries():
+    """The fused_round library's two launch entries (``fused_round``,
+    ``fused_plan``) and its error string, typed."""
     lib = _cuda.load(FUSED_NAME)
-    fn = lib.fused_round_launch
-    if fn.argtypes is None:  # argtypes last: it marks the entry as typed
-        fn.restype = ctypes.c_int
+    rnd, plan = lib.fused_round_launch, lib.fused_plan_launch
+    if plan.argtypes is None:  # argtypes last: it marks the entries as typed
+        for fn in (rnd, plan):
+            fn.restype = ctypes.c_int
         lib.fused_round_error_string.restype = ctypes.c_char_p
         lib.fused_round_error_string.argtypes = [ctypes.c_int]
-        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
-                       + [ctypes.c_int, ctypes.c_void_p])
-    return fn, lib.fused_round_error_string
+        rnd.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+                        + [ctypes.c_int, ctypes.c_void_p])
+        plan.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
+                         + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    return rnd, plan, lib.fused_round_error_string
+
+
+def _plan_args(y: torch.Tensor, plan_ops: PlanOperands) -> Tuple[int, int]:
+    if y.dim() != 2 or y.shape[0] != plan_ops.n:
+        raise ValueError(
+            f"fused_plan takes y ({plan_ops.n}, d) for its plan, got "
+            f"{tuple(y.shape)}"
+        )
+    return y.shape[0], y.shape[1]
+
+
+def fused_plan_reference(
+    op: Op, y: torch.Tensor, plan_ops: PlanOperands
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain PyTorch version of :func:`fused_plan`, for any op and float
+    dtype: the chain of :func:`fused_round_reference` over the plan's
+    rounds, each round's table expanded from its triples, and the row
+    captured before its round (None when the plan captures none)."""
+    n, _ = _plan_args(y, plan_ops)
+    total = None
+    rows = torch.arange(n, device=y.device)
+    for k in range(plan_ops.rounds):
+        if k == plan_ops.capture_round:
+            total = y[plan_ops.capture_wire].clone()
+        t = plan_ops.round_ops(k).to(y.device).long()
+        src = torch.stack([rows, torch.full_like(rows, -1)], dim=1)
+        src[t[:, 0]] = t[:, 1:]
+        y = fused_round_reference(op, y, src)
+    if plan_ops.capture_round == plan_ops.rounds:
+        total = y[plan_ops.capture_wire].clone()
+    return y, total
+
+
+def fused_plan_cuda(
+    op: Op, y: torch.Tensor, plan_ops: PlanOperands
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Launch the ``fused_plan`` kernel on one cluster of
+    ``plan_ops.cluster`` CTAs; raises on anything it does not take, and
+    when the card refuses the cluster (its shared memory, its size, or no
+    room for it): nothing runs in its place."""
+    n, d = _plan_args(y, plan_ops)
+    name = check_kernel_row(op, d)
+    _check_tensor("fused_plan kernel", y)
+    if plan_ops.ops.device != y.device:
+        raise ValueError("fused_plan kernel: the operand list must be on "
+                         "y's device (PlanOperands.to)")
+    dev = y.device
+    c = plan_ops.cluster
+    with torch.cuda.device(dev):
+        yc = y.contiguous()
+        out = torch.empty_like(yc)
+        total = (torch.empty((d,), dtype=torch.float32, device=dev)
+                 if plan_ops.capture_round >= 0 else None)
+        _round, fn, error_string = _fused_entries()
+        err = fn(KERNEL_OPS[name], d, yc.data_ptr(), plan_ops.ops.data_ptr(),
+                 plan_ops.offsets.data_ptr(), plan_ops.flags.data_ptr(),
+                 out.data_ptr(),
+                 None if total is None else total.data_ptr(), n,
+                 plan_ops.rows_per, plan_stride(n, d, c), plan_ops.rounds,
+                 plan_ops.capture_round, plan_ops.capture_wire, c,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, PLAN_NAME, error_string)
+    PLAN_LAUNCHES.add()
+    return out, total
+
+
+def fused_plan(
+    op: Op, y: torch.Tensor, plan_ops: PlanOperands
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Every round of a plan: what :func:`fused_round` over each round's
+    table computes, in one launch.
+
+    ``y``: (n, d); ``plan_ops``: the plan's operand list
+    (``_tiling.plan_operands``) on ``y``'s device.  Returns ``(out,
+    total)``: a new (n, d) tensor and the (d,) row the plan captures before
+    its capture round (None when it captures none).  CPU tensors take the
+    plain version; CUDA tensors launch the kernel.
+    """
+    if y.device.type == "cpu":
+        return fused_plan_reference(op, y, plan_ops)
+    return fused_plan_cuda(op, y, plan_ops)
 
 
 def _split(x: torch.Tensor, num_tiles: int) -> Tuple[int, int, int]:
@@ -231,6 +323,8 @@ def tile_apply_cuda(
     dev = local.device
     with torch.cuda.device(dev):
         lc, sc = local.contiguous(), seeds.contiguous()
+        if lc.data_ptr() % 16:   # the kernel streams 16-byte words
+            lc = lc.clone()
         out = torch.empty((t * k, d), dtype=torch.float32, device=dev)
         _loc, app, error_string = _entries()
         err = app(KERNEL_OPS[name], d, lc.data_ptr(), sc.data_ptr(),

@@ -23,6 +23,9 @@ from repro_torch.kernels._tiling import (
     lift_masked,
     pack_leaves,
     packed_op,
+    plan_cluster_size,
+    plan_min_cluster,
+    plan_operands,
     round_sources,
 )
 from repro_torch.kernels.op_table import KernelOpError
@@ -509,18 +512,139 @@ def test_fused_round_rigid_matches_plain_and_float64(cuda):
     np.testing.assert_allclose(y[:, 1:].double().cpu().numpy(), s64, **tol)
 
 
-@pytest.mark.parametrize("alg", ["sklansky", "brent_kung", "ladner_fischer",
-                                 "dissemination", "blelloch"])
+PLAN_CIRCUITS = ["sklansky", "brent_kung", "ladner_fischer", "dissemination",
+                 "blelloch"]
+# Every circuit at n in {1000, 2^16} (Blelloch: 1024, a power of two) and
+# d in {1, 3, 4} (the smallest clusters that hold them are 1, 4, 8 and 16),
+# and 2^15 x 1, which 2 CTAs hold.
+PLAN_CASES = (
+    [(alg, n, d, op) for alg in PLAN_CIRCUITS
+     for n in ((1024 if alg == "blelloch" else 1000), 2**16)
+     for d in (1, 3, 4) for op in ("add", "max")]
+    + [(alg, 2**15, 1, "add") for alg in PLAN_CIRCUITS]
+    + [("ladner_fischer_masked", n, d, "add") for n in (1000, 2**16)
+       for d in (1, 4)]
+)
+
+
+@pytest.mark.parametrize("alg,n,d,op", PLAN_CASES)
+def test_fused_plan_kernel_matches_plain_at_every_cluster_size(cuda, alg, n,
+                                                               d, op):
+    """The whole plan in one launch, at the cluster size the size rule
+    picks, at the smallest that holds it and at 16, against the plain
+    version (the chain of plain rounds) and the per-round kernel, exact;
+    Blelloch's total too."""
+    masked = alg.endswith("_masked")
+    plan = _plan(alg.replace("_masked", ""), n, masked)
+    fn = torch.add if op == "add" else torch.maximum
+    x = (_ints if op == "add" else _floats)(n, d, cuda, seed=n + d)
+    want, want_total = ts.fused_plan_reference(fn, x, plan_operands(plan, 1))
+    chain = x
+    for rnd in plan.rounds:
+        src = round_sources(rnd, n)
+        if src is not None:
+            chain = ts.fused_round_cuda(fn, chain, torch.as_tensor(src,
+                                                                   device=cuda))
+    for c in sorted({plan_min_cluster(n, d), plan_cluster_size(n, d), 16}):
+        po = plan_operands(plan, c).to(cuda)
+        reset_launch_counts()
+        got, total = ts.fused_plan_cuda(fn, x, po)
+        torch.cuda.synchronize()
+        assert launch_counts()["fused_plan"] == 1
+        assert torch.equal(got, want), c
+        assert torch.equal(got, chain), c
+        assert (total is None) == (want_total is None)
+        if total is not None:
+            assert torch.equal(total, want_total), c
+
+
+def test_fused_plan_rigid_matches_plain_and_float64(cuda):
+    n = 4096
+    dfm = _deformations(n, cuda, seed=3)
+    a64, s64 = _chain64(dfm)
+    x2, spec = pack_leaves(dfm)
+    op = packed_op(compose_batched, spec)
+    tol = _rigid_tol(s64)
+    plan = get_plan("ladner_fischer", n)
+    assert plan_min_cluster(n, 3) == 1 and plan_cluster_size(n, 3) == 8
+    for c in (1, 8, 16):
+        po = plan_operands(plan, c)
+        got, _ = ts.fused_plan_cuda(op, x2, po.to(cuda))
+        want, _ = ts.fused_plan_reference(op, x2, po)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **tol)
+        np.testing.assert_allclose(got[:, 0].double().cpu().numpy(), a64, **tol)
+        np.testing.assert_allclose(got[:, 1:].double().cpu().numpy(), s64,
+                                   **tol)
+
+
+def test_a_plan_above_the_cluster_takes_a_launch_a_round(cuda):
+    """2^20 x 4 floats do not fit twice in 16 CTAs' shared memory: the size
+    rule sends the plan to the per-round kernel before any launch."""
+    n, d = 2**20, 4
+    assert plan_cluster_size(n, d) is None
+    x = _ints(n, d, cuda, seed=9)
+    plan = get_plan("brent_kung", n)
+    rounds = sum(1 for r in plan.rounds if r.num_combines or r.num_moves)
+    reset_launch_counts()
+    y = scan(torch.add, x, backend="pallas", algorithm="brent_kung")
+    counts = {k: v for k, v in launch_counts().items() if v}
+    assert counts == {"fused_round": rounds}
+    assert torch.equal(y, torch.cumsum(x.double(), 0).float())
+
+
+def test_a_refused_cluster_launch_raises(cuda):
+    """A cluster the card refuses (32 CTAs; or 1 CTA whose slice is larger
+    than its shared memory) raises: nothing runs in its place."""
+    n = 2**16
+    x = _ints(n, 4, cuda, seed=2)
+    plan = get_plan("ladner_fischer", n)
+    reset_launch_counts()
+    for c in (32, 1):
+        with pytest.raises(RuntimeError, match="fused_plan kernel launch"):
+            ts.fused_plan_cuda(torch.add, x, plan_operands(plan, c).to(cuda))
+    assert not any(launch_counts().values())
+    # The refusal leaves no error behind for the next launch.
+    y, _ = ts.fused_plan_cuda(torch.add, x, plan_operands(plan, 16).to(cuda))
+    assert torch.equal(y, torch.cumsum(x.double(), 0).float())
+
+
+@pytest.mark.parametrize("kind", ["add", "max", "rigid"])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_tile_apply_unaligned_tiles_match_plain(cuda, kind, offset):
+    """t = 3, k = 1001, d = 3: no tile starts or ends on 16 bytes (and with
+    offset 1 the input is a view that does not either)."""
+    t, k, d = 3, 1001, 3
+    if kind == "rigid":
+        dfm = _deformations(t * k + offset, cuda, seed=4)
+        x2, spec = pack_leaves(dfm)
+        op = packed_op(compose_batched, spec)
+        base, seeds = x2, x2[:t].contiguous()
+        tol = _rigid_tol(x2[:, 1:].double().cpu().numpy())
+    else:
+        op = torch.add if kind == "add" else torch.maximum
+        base = (_ints if kind == "add" else _floats)(t * k + offset, d, cuda,
+                                                       seed=5)
+        seeds = (_ints if kind == "add" else _floats)(t, d, cuda, seed=6)
+    local = base.view(-1)[offset * d:].view(t, k, d)
+    got = ts.tile_apply_cuda(op, local, seeds)
+    want = ts.tile_apply_reference(op, local, seeds)
+    torch.cuda.synchronize()
+    if kind == "rigid":
+        torch.testing.assert_close(got, want, **tol)
+    else:
+        assert torch.equal(got, want)
+    assert torch.equal(got[:k], local[0])
+
+
+@pytest.mark.parametrize("alg", PLAN_CIRCUITS)
 @pytest.mark.parametrize("n", [1000, 2**16])
-def test_pallas_rounds_on_card_launch_fused_round_each_round(cuda, alg, n):
+def test_pallas_rounds_on_card_launch_one_fused_plan(cuda, alg, n):
     x = _ints(n, 1, cuda, seed=n)[:, 0]
     f = _floats(n, 1, cuda, seed=n)[:, 0]
-    m = 1 << (n - 1).bit_length() if alg == "blelloch" else n
-    rounds = sum(1 for r in get_plan(alg, m, n_valid=n if m != n else None).rounds
-                 if r.num_combines or r.num_moves)
     reset_launch_counts()
     y = scan(torch.add, x, backend="pallas", algorithm=alg)
-    assert launch_counts()["fused_round"] == rounds
+    assert {k: v for k, v in launch_counts().items() if v} == {"fused_plan": 1}
     assert torch.equal(y, torch.cumsum(x.double(), 0).float())
     assert torch.equal(scan(torch.maximum, f, backend="pallas", algorithm=alg),
                        torch.cummax(f, 0).values)

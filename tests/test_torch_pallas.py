@@ -1,6 +1,7 @@
 """Port parity: the ``pallas`` scan backend
-(``repro_torch.core.engine.pallas_backend``) and the ``fused_round`` plain
-version against ``repro.core.engine``'s ``pallas`` backend and
+(``repro_torch.core.engine.pallas_backend``; rounds mode through
+``fused_plan``'s plain version, the chain of ``fused_round``'s) and the
+``fused_round`` plain version against ``repro.core.engine``'s ``pallas`` backend and
 ``repro.kernels.tile_scan.fused_round`` in interpret mode.
 
 Inputs are made with numpy from a seed and handed to both packages.  A
@@ -213,13 +214,16 @@ def test_input_errors_match_reference():
 
 
 def test_round_tables_are_cached_per_plan_and_device():
+    """The backend's operands hang off the plan, one entry a device (no
+    lookup keyed by the plan's mask): a second call reuses them."""
     lowered_cache.clear()
     x = torch.arange(1.0, 42.0)
     scan(torch.add, x, backend="pallas", algorithm="brent_kung")
-    s1 = lowered_cache.stats()
+    plan = get_plan("brent_kung", 41)
+    ops = plan.scratch[("pallas", "cpu")][("plan", 1)]
     y = scan(torch.add, x, backend="pallas", algorithm="brent_kung")
-    s2 = lowered_cache.stats()
-    assert s2["hits"] == s1["hits"] + 1 and s2["misses"] == s1["misses"]
+    assert plan.scratch[("pallas", "cpu")][("plan", 1)] is ops
+    assert lowered_cache.stats() == {"hits": 0, "misses": 0, "size": 0}
     assert torch.equal(y, torch.cumsum(x, 0))
 
 

@@ -13,8 +13,17 @@ card's own time), the variants in turn and then in reverse order.  It
 prints one line per variant, and the card's name and power limit.
 
 Kernels: ``flash_attention`` (bf16, BH 128, L 512, d 112, causal: the
-serving path's prefill) and ``lookback_scan`` (add over 2^24 x 1 floats in
-4096 tiles: the decoupled backend's scan).
+serving path's prefill), ``lookback_scan`` (add over 2^24 x 1 floats in
+4096 tiles: the decoupled backend's scan), ``fused_round`` (the
+``fused_plan`` kernel of ``fused_round.cu``: a Ladner-Fischer plan over
+2^16 x 1 floats in one launch, as the pallas backend's rounds mode runs
+it) and ``tile_apply`` (add over 2^24 x 1 floats in 16 tiles, e.g.
+``kApplyLoads``: float4 loads in flight a thread).  For ``fused_round`` the
+name ``C`` varies the cluster size instead, a launch argument (no
+rebuild), and ``--n``/``--d`` set the plan's rows and row width::
+
+    python tools/kernel_variants.py fused_round C 4 8 16
+    python tools/kernel_variants.py fused_round C 1 2 4 8 16 --n 4096 --d 3
 """
 
 from __future__ import annotations
@@ -37,12 +46,20 @@ import chip_smoke  # noqa: E402  (timing helpers and tolerances)
 from repro_torch.kernels import _cuda  # noqa: E402
 
 
+# Each kernel's source (csrc/<source>.cu) and its C launch entry.
+SOURCES = {"flash_attention": ("flash_attention", "flash_attention_launch"),
+           "lookback_scan": ("lookback_scan", "lookback_scan_launch"),
+           "fused_round": ("fused_round", "fused_plan_launch"),
+           "tile_apply": ("tile_scan", "tile_apply_launch")}
+
+
 def _build(kernel: str, name: str, value: int):
+    source, entry = SOURCES[kernel]
     out_dir = os.path.join(ROOT, "build", "variants",
                            f"{kernel}-{name}-{value}")
     shutil.rmtree(out_dir, ignore_errors=True)
     shutil.copytree(_cuda.CSRC, out_dir)
-    src_path = os.path.join(out_dir, f"{kernel}.cu")
+    src_path = os.path.join(out_dir, f"{source}.cu")
     for path in [src_path] + [os.path.join(out_dir, f)
                               for f in os.listdir(out_dir)
                               if f.endswith(".cuh")]:
@@ -55,12 +72,12 @@ def _build(kernel: str, name: str, value: int):
                 f.write(new)
             break
     else:
-        raise SystemExit(f"no 'constexpr int {name}' in {kernel}.cu or "
+        raise SystemExit(f"no 'constexpr int {name}' in {source}.cu or "
                          "the headers")
     lib = os.path.join(out_dir, "lib.so")
     subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", lib, src_path],
                    check=True, capture_output=True, text=True)
-    return getattr(ctypes.CDLL(lib), f"{kernel}_launch")
+    return getattr(ctypes.CDLL(lib), entry)
 
 
 def _flash(device):
@@ -115,31 +132,101 @@ def _lookback(device):
     return run, check, argtypes
 
 
+def _fused_plan(device, cluster=None, n=None, d=1):
+    """Ladner-Fischer add over n x d (ROUNDS_N x 1 by default) as one
+    fused_plan launch on ``cluster`` CTAs (the size rule's when None)."""
+    from repro_torch.core.engine import get_plan
+    from repro_torch.core.engine.pallas_backend import _plan_operands
+    from repro_torch.kernels._tiling import plan_cluster_size, plan_stride
+
+    n = n or chip_smoke.ROUNDS_N
+    c = cluster or plan_cluster_size(n, d)
+    po = _plan_operands(get_plan("ladner_fischer", n), device, c)
+    x = chip_smoke._ints(n, d, device, seed=12)
+    want = torch.cumsum(x.double(), 0).float()
+
+    def run(fn):
+        y = torch.empty_like(x)
+        err = fn(0, d, x.data_ptr(), po.ops.data_ptr(), po.offsets.data_ptr(),
+                 po.flags.data_ptr(), y.data_ptr(), None, n, po.rows_per,
+                 plan_stride(n, d, c),
+                 po.rounds, -1, -1, c,
+                 torch.cuda.current_stream(device).cuda_stream)
+        assert err == 0, err
+        return y
+
+    def check(out):
+        chip_smoke._require_equal(out, want, "variant")
+
+    argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
+                + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    return run, check, argtypes
+
+
+def _tile_apply(device):
+    from repro_torch.kernels import tile_scan as ts
+
+    n, t = chip_smoke.SCAN_N, chip_smoke.TILE_COUNTS[0]
+    x = chip_smoke._ints(n, 1, device, seed=3)
+    local, parts = ts.tile_local_scan_reference(torch.add, x, t)
+    seeds = torch.cat([parts[:1], torch.cumsum(parts, 0)[:-1]])
+    want = torch.cumsum(x.double(), 0).float()
+
+    def run(fn):
+        out = torch.empty((n, 1), device=device)
+        err = fn(0, 1, local.data_ptr(), seeds.data_ptr(), out.data_ptr(), t,
+                 n // t, torch.cuda.current_stream(device).cuda_stream)
+        assert err == 0, err
+        return out
+
+    def check(out):
+        chip_smoke._require_equal(out, want, "variant")
+
+    argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+                + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    return run, check, argtypes
+
+
+KERNELS = {"flash_attention": _flash, "lookback_scan": _lookback,
+           "fused_round": _fused_plan, "tile_apply": _tile_apply}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("kernel", choices=["flash_attention", "lookback_scan"])
-    ap.add_argument("name", help="the constexpr int to vary")
+    ap.add_argument("kernel", choices=list(KERNELS))
+    ap.add_argument("name", help="the constexpr int to vary (fused_round: "
+                                 "or C, the cluster size)")
     ap.add_argument("values", type=int, nargs="+")
+    ap.add_argument("--n", type=int, default=None,
+                    help="fused_round: the plan's rows (default ROUNDS_N)")
+    ap.add_argument("--d", type=int, default=1,
+                    help="fused_round: the row width (default 1)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device", file=sys.stderr)
         return 2
     device = torch.device("cuda", 0)
-    run, check, argtypes = (_flash if args.kernel == "flash_attention"
-                            else _lookback)(device)
-    fns = {}
+    calls = {}
     for value in args.values:
-        fn = _build(args.kernel, args.name, value)
+        if args.kernel == "fused_round" and args.name == "C":
+            run, check, argtypes = _fused_plan(device, value, args.n, args.d)
+            fn = getattr(_cuda.load("fused_round"), SOURCES["fused_round"][1])
+        elif args.kernel == "fused_round":
+            run, check, argtypes = _fused_plan(device, None, args.n, args.d)
+            fn = _build(args.kernel, args.name, value)
+        else:
+            run, check, argtypes = KERNELS[args.kernel](device)
+            fn = _build(args.kernel, args.name, value)
         fn.restype = ctypes.c_int
         fn.argtypes = argtypes
         out = run(fn)
         torch.cuda.synchronize()
         check(out)
-        fns[value] = fn
-    times = {value: [] for value in fns}
-    for order in (list(fns), list(reversed(list(fns)))):
+        calls[value] = (lambda run=run, fn=fn: run(fn))
+    times = {value: [] for value in calls}
+    for order in (list(calls), list(reversed(list(calls)))):
         for value in order:
-            times[value].append(chip_smoke._graph_ms(lambda: run(fns[value])))
+            times[value].append(chip_smoke._graph_ms(calls[value]))
     for value, ms in times.items():
         print(f"{args.kernel} {args.name}={value}: graph ms {ms}", flush=True)
     print(chip_smoke._smi(), flush=True)
