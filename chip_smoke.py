@@ -41,10 +41,11 @@ Output, one line each: ``env``, ``build``, ``kernel warp_ncc``,
 ``kernel lookback_scan``, ``kernel tile_local_scan``, ``kernel tile_apply``,
 ``kernel fused_round`` (the per-round kernel and the whole-plan
 ``fused_plan`` kernel), ``kernel chunk_local``, ``kernel chunk_apply``,
-``kernel flash_attention``, ``redesign`` (the four kernels redesigned for
-Hopper, flash_attention, lookback_scan, fused_round and tile_apply, beside
-their previous designs: times, the library call's, the bound, the HGMMA
-count of flash_attention's SASS and lookback_scan's longest walk),
+``kernel flash_attention``, ``redesign`` (the six kernels redesigned for
+Hopper, flash_attention, lookback_scan, fused_round, tile_apply,
+chunk_local and chunk_apply, beside their previous designs: times, the
+library call's, the bound, the HGMMA count of flash_attention's and
+chunk_scan's SASS and lookback_scan's longest walk),
 ``series``, ``series_hier``, ``series_compose``,
 ``scan_engine``, ``lm_serve``, ``lm_check``, ``kernels`` (JSON), the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``.  Any
@@ -1216,9 +1217,10 @@ def check_flash_attention(device) -> dict:
 # The redesigned kernels' previous designs (flash_attention with the bf16
 # products on the f32 CUDA cores; lookback_scan with each thread's strided
 # rows read twice and a one-tile-at-a-time walk; fused_round as one launch
-# a round of the plan; tile_apply as one thread a row): their times as
-# PERF.md records them, used when --previous-csrc does not name the sources
-# to build and time them in this run.
+# a round of the plan; tile_apply as one thread a row; chunk_local and
+# chunk_apply with bf16 staged as float32 and the products on the CUDA
+# cores): their times as PERF.md records them, used when --previous-csrc
+# does not name the sources to build and time them in this run.
 PREVIOUS_RECORDED = {
     "flash_attention": {"ms": 0.543, "origin": "PERF.md §6 row 8, the "
                         "previous design (NVIDIA H100 80GB HBM3, 700.00 W)"},
@@ -1229,18 +1231,22 @@ PREVIOUS_RECORDED = {
                     "per-round launches (NVIDIA H100 80GB HBM3, 700.00 W)"},
     "tile_apply": {"ms": 0.0848, "origin": "PERF.md §6 row 5, the previous "
                    "design (NVIDIA H100 80GB HBM3, 700.00 W)"},
+    "chunk_local": {"ms": 0.802, "origin": "PERF.md §6 row 6, the previous "
+                    "design (NVIDIA H100 80GB HBM3, 700.00 W)"},
+    "chunk_apply": {"ms": 0.236, "origin": "PERF.md §6 row 7, the previous "
+                    "design (NVIDIA H100 80GB HBM3, 700.00 W)"},
 }
 
 # The kernels whose previous design --previous-csrc builds (this slice's
 # redesigns; the earlier ones are quoted from PERF.md): each one's library
 # (csrc/<source>.cu) and the argument types of its C entry <name>_launch.
 _PREVIOUS_ENTRIES = {
-    "fused_round": ("fused_round",
-                    [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
-                    + [ctypes.c_int, ctypes.c_void_p]),
-    "tile_apply": ("tile_scan",
-                   [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
-                   + [ctypes.c_int] * 2 + [ctypes.c_void_p]),
+    "chunk_local": ("chunk_scan",
+                    [ctypes.c_int] + [ctypes.c_void_p] * 6
+                    + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
+    "chunk_apply": ("chunk_scan",
+                    [ctypes.c_int] + [ctypes.c_void_p] * 5
+                    + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
 }
 
 
@@ -1279,22 +1285,24 @@ def _hgmma_count(name: str) -> int:
 
 
 def check_redesigns(device, kfa: dict, kl: dict, kf: dict, ka: dict,
-                    previous_csrc: str = None) -> dict:
+                    kcl: dict, kca: dict, previous_csrc: str = None) -> dict:
     """The redesigned kernels beside their previous designs at the main
     path's shapes: flash_attention bf16 at (128, 512, 112), lookback_scan
     add at 2^24 x 1, fused_round as Ladner-Fischer add at 2^16 x 1 (the
     whole plan in one fused_plan launch against the previous design's
-    launch a round) and tile_apply add at 2^24 x 1 over 16 tiles.  With
-    ``previous_csrc`` this slice's previous sources (fused_round,
-    tile_apply) are built and timed here in turns (previous, new, new,
-    previous), through their launch entries and replayed from a CUDA
-    graph; else, and for the kernels of earlier slices (flash_attention,
-    lookback_scan), the previous times are PERF.md's.  The new kernels'
+    launch a round), tile_apply add at 2^24 x 1 over 16 tiles, and
+    chunk_local and chunk_apply bf16 at (1792, 128, 64, 64).  With
+    ``previous_csrc`` this slice's previous sources (chunk_local,
+    chunk_apply) are built, held against the plain versions and timed
+    here in turns (previous, new, new, previous), through their launch
+    entries and replayed from a CUDA graph; else, and for the kernels of
+    earlier slices, the previous times are PERF.md's.  The new kernels'
     correctness is held in the check_* phases."""
     from repro_torch.core.engine import get_plan
     from repro_torch.core.engine.pallas_backend import (
         _plan_operands, _round_index_tensors,
     )
+    from repro_torch.kernels import chunk_scan as cs
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import lookback_scan as lb
     from repro_torch.kernels import tile_scan as ts
@@ -1302,7 +1310,7 @@ def check_redesigns(device, kfa: dict, kl: dict, kf: dict, ka: dict,
         default_num_tiles_cuda, plan_cluster_size,
     )
 
-    cfg, _g, _l = _lm_shapes()
+    cfg, g, cl = _lm_shapes()
     bh, l, d = LM_BATCH * cfg.n_heads, LM_PROMPT, cfg.hd
     gen = torch.Generator(device=device).manual_seed(22)
     q, k, v = ((torch.randn((bh, l, d), generator=gen, device=device)
@@ -1312,50 +1320,58 @@ def check_redesigns(device, kfa: dict, kl: dict, kf: dict, ka: dict,
     x = _ints(n, 1, device, seed=1)
     rn = ROUNDS_N
     plan = get_plan("ladner_fischer", rn)
-    live = [src for src in _round_index_tensors(plan, device)
-            if src is not None]
+    rounds = sum(src is not None
+                 for src in _round_index_tensors(plan, device))
     po = _plan_operands(plan, device, plan_cluster_size(rn, 1))
     xr = _ints(rn, 1, device, seed=12)
     at = TILE_COUNTS[0]
     ploc, pparts = ts.tile_local_scan_reference(torch.add, x, at)
     seeds = torch.cat([pparts[:1], torch.cumsum(pparts, 0)[:-1]])
+    dk, dv = cfg.ssm_state, cfg.ssm_head_dim
+    cc, cb, cv, cca = _chunk_inputs(g, cl, dk, dv, torch.bfloat16, device,
+                                    seed=20)
+    cy, cs_state = cs.chunk_local_reference(cc, cb, cv, cca)
+    gen = torch.Generator(device=device).manual_seed(21)
+    csp = torch.randn((g, dk, dv), generator=gen, device=device)
     new = {"flash_attention": lambda: fa.flash_attention_cuda(q, k, v),
            "lookback_scan": lambda: lb.lookback_scan_cuda(torch.add, x, t),
            "fused_round": lambda: ts.fused_plan_cuda(torch.add, xr, po)[0],
-           "tile_apply": lambda: ts.tile_apply_cuda(torch.add, ploc, seeds)}
+           "tile_apply": lambda: ts.tile_apply_cuda(torch.add, ploc, seeds),
+           "chunk_local": lambda: cs.chunk_local_cuda(cc, cb, cv, cca),
+           "chunk_apply": lambda: cs.chunk_apply_cuda(cc, cca, cy, csp)}
     previous = {}
     if previous_csrc:
-        pr, pa = (_previous_launch(previous_csrc, name)
+        pl, pa = (_previous_launch(previous_csrc, name)
                   for name in _PREVIOUS_ENTRIES)
 
         def stream():
             return torch.cuda.current_stream(device).cuda_stream
 
-        def prev_rounds():
-            y = xr
-            for src in live:
-                out = torch.empty_like(y)
-                err = pr(0, 1, y.data_ptr(), src.data_ptr(), out.data_ptr(),
-                         rn, stream())
-                assert err == 0, err
-                y = out
-            return y
+        def prev_local():
+            y = torch.empty_like(cv)
+            s = torch.empty((g, dk, dv), device=device)
+            err = pl(1, cc.data_ptr(), cb.data_ptr(), cv.data_ptr(),
+                     cca.data_ptr(), y.data_ptr(), s.data_ptr(), g, cl, dk,
+                     dv, stream())
+            assert err == 0, err
+            return y, s
 
         def prev_apply():
-            out = torch.empty((n, 1), device=device)
-            err = pa(0, 1, ploc.data_ptr(), seeds.data_ptr(), out.data_ptr(),
-                     at, n // at, stream())
+            out = torch.empty_like(cy)
+            err = pa(1, cc.data_ptr(), cca.data_ptr(), cy.data_ptr(),
+                     csp.data_ptr(), out.data_ptr(), g, cl, dk, dv, stream())
             assert err == 0, err
             return out
 
-        previous = {"fused_round": prev_rounds, "tile_apply": prev_apply}
+        previous = {"chunk_local": prev_local, "chunk_apply": prev_apply}
         # The previous kernels compute the same function.
-        _require_equal(prev_rounds(), new["fused_round"](),
-                       "previous fused_round chain vs fused_plan")
-        _require_equal(prev_apply(), new["tile_apply"](),
-                       "previous tile_apply")
+        y_o, s_o = prev_local()
+        _close_to(y_o, cy, *BF16_TOL, "previous chunk_local y_intra")
+        _close_to(s_o, cs_state, *STATE_TOL, "previous chunk_local state")
+        _close_to(prev_apply(), cs.chunk_apply_reference(cc, cca, cy, csp),
+                  BF16_TOL[0], max(BF16_TOL[1], 1e-4), "previous chunk_apply")
     rows = {"flash_attention": kfa, "lookback_scan": kl, "fused_round": kf,
-            "tile_apply": ka}
+            "tile_apply": ka, "chunk_local": kcl, "chunk_apply": kca}
     out = {}
     for name, fn in new.items():
         if name in previous:
@@ -1385,12 +1401,16 @@ def check_redesigns(device, kfa: dict, kl: dict, kf: dict, ka: dict,
         shape=[n, 1], tiles=t, walk_tiles_max=kl["walk_steps_max"],
         walk_warp_steps_max=-(-kl["walk_steps_max"] // LOOKBACK_STEP_TILES))
     out["fused_round"].update(
-        shape=[rn, 1], circuit="ladner_fischer", rounds=len(live),
+        shape=[rn, 1], circuit="ladner_fischer", rounds=rounds,
         cluster=po.cluster, kernel="fused_plan (one launch; previous: "
         "fused_round, a launch a round)",
         bound_ms=kf["plan_bound_ms"], bound_by=kf["plan_bound_by"],
         round_bound_ms=kf["bound_ms"])
     out["tile_apply"].update(shape=[n, 1], tiles=at)
+    hgmma_chunk = _hgmma_count(cs.LIBRARY)
+    for name in ("chunk_local", "chunk_apply"):
+        out[name].update(shape=[g, cl, dk, dv], dtype="bf16",
+                         hgmma_in_sass=hgmma_chunk)
     return out
 
 
@@ -1537,8 +1557,10 @@ def run_lm_serve(device, smoke: bool = False) -> dict:
     return out
 
 
-_KERNEL_GROUPS = (("chunk_local", "chunk_local_kernel"),
-                  ("chunk_apply", "chunk_apply_kernel"),
+_KERNEL_GROUPS = (("chunk_local", "chunk_local_bf16_kernel"),
+                  ("chunk_local", "chunk_local_f32_kernel"),
+                  ("chunk_apply", "chunk_apply_bf16_kernel"),
+                  ("chunk_apply", "chunk_apply_f32_kernel"),
                   ("flash_attention", "flash_bf16_kernel"),
                   ("flash_attention", "flash_f32_kernel"))
 
@@ -1661,11 +1683,10 @@ def main() -> int:
     ap.add_argument("--previous-csrc", default=None,
                     help="csrc directory of the kernels' previous designs "
                          "(e.g. from git archive of an earlier commit): "
-                         "build and time fused_round (a launch a round) "
-                         "and tile_apply from there beside the current "
-                         "ones; without it, and for the kernels redesigned "
-                         "in earlier slices, the redesign line quotes "
-                         "PERF.md's times")
+                         "build and time chunk_local and chunk_apply from "
+                         "there beside the current ones; without it, and "
+                         "for the kernels redesigned in earlier slices, the "
+                         "redesign line quotes PERF.md's times")
     args = ap.parse_args()
 
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -1727,12 +1748,14 @@ def main() -> int:
     _line("kernel chunk_apply", kc_apply)
     kfa = check_flash_attention(dev)
     _line("kernel flash_attention", kfa)
-    redesign = check_redesigns(dev, kfa, kl, kf, kt_apply, args.previous_csrc)
+    redesign = check_redesigns(dev, kfa, kl, kf, kt_apply, kc_local,
+                               kc_apply, args.previous_csrc)
     _line("redesign", redesign)
-    if redesign["flash_attention"]["hgmma_in_sass"] < 1:
-        raise AssertionError("flash_attention's library has no HGMMA "
-                             "instruction: the bf16 products are not on the "
-                             "tensor cores")
+    for name in ("flash_attention", "chunk_local"):
+        if redesign[name]["hgmma_in_sass"] < 1:
+            raise AssertionError(f"{name}'s library has no HGMMA "
+                                 "instruction: the bf16 products are not on "
+                                 "the tensor cores")
 
     series = run_series(dev, 33, SIZE)
     _line("series", series)

@@ -3,7 +3,7 @@
 
 It lists only the configurations the port can run: Zamba2-7B (Mamba2 and
 shared attention blocks).  The reference's other nine wait for their block
-kinds (``ROADMAP.md``, Queue 1 item 5); asking for any other name raises
+kinds (``ROADMAP.md``, Queue 1 item 4); asking for any other name raises
 ``NotImplementedError``.
 """
 
@@ -33,7 +33,7 @@ def _module(name: str):
         raise NotImplementedError(
             f"config {name!r} is not ported (the port has {list(ALIASES)}; "
             "the reference's others come in a later slice, ROADMAP.md "
-            "Queue 1 item 5)"
+            "Queue 1 item 4)"
         )
     return import_module(f"repro_torch.configs.{mod_name}")
 

@@ -195,9 +195,9 @@ def exec_worksteal(
 
 #: Backend -> the ``ROADMAP.md`` item (Queue 1) that ports it.
 UNPORTED = {
-    "simulate": "Queue 1 item 4 (simulator)",
-    "collective": "Queue 1 item 4 (distributed / sharded execution)",
-    "sharded": "Queue 1 item 4 (distributed / sharded execution)",
+    "simulate": "Queue 1 item 1 (simulator)",
+    "collective": "Queue 1 item 6 (distributed / sharded execution)",
+    "sharded": "Queue 1 item 6 (distributed / sharded execution)",
 }
 
 

@@ -17,7 +17,11 @@ Each takes its route from where its tensors lie: CPU tensors run the plain
 PyTorch version; CUDA tensors launch ``csrc/chunk_scan.cu`` (built at first
 use) or raise.  The kernels take float32 or bfloat16 operands (``ca``,
 ``s`` and ``s_prev`` float32), ``L <= 128`` and ``dk, dv`` multiples of 8
-up to 128.
+up to 128, and the operands' dtype picks the kernel: bfloat16 runs the
+products on the tensor cores (``wgmma``; float32 products such as
+``att ⊙ D`` enter them as two bf16 terms), float32 the CUDA-core kernels,
+which keep float32 products throughout.  The bf16 kernels pad L and d with
+zeros in shared memory; nothing falls back from one route to the other.
 """
 
 from __future__ import annotations
@@ -144,6 +148,13 @@ def _entries():
     return local, apply, lib.chunk_scan_error_string
 
 
+def _aligned(*ts):
+    """The bf16 kernels copy and read 16-byte pieces of rows (by cp.async
+    or TMA): a tensor that starts off a 16-byte boundary (a view) is copied
+    to one that does not."""
+    return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in ts)
+
+
 def _raise_on(err: int, what: str, error_string) -> None:
     if err != 0:
         msg = error_string(err).decode()
@@ -156,6 +167,8 @@ def chunk_local_cuda(c, b, v, ca) -> Tuple[torch.Tensor, torch.Tensor]:
     g, l, dk, dv = _local_shapes(c, b, v, ca)
     code = _check_kernel_args("chunk_local", l, dk, dv,
                               (("c", c), ("b", b), ("v", v)), (("ca", ca),))
+    if code == _DTYPES[torch.bfloat16]:
+        c, b, v, ca = _aligned(c, b, v, ca)
     local, _apply, error_string = _entries()
     with torch.cuda.device(c.device):
         y = torch.empty((g, l, dv), dtype=v.dtype, device=c.device)
@@ -176,6 +189,8 @@ def chunk_apply_cuda(c, ca, y_intra, s_prev) -> torch.Tensor:
     code = _check_kernel_args("chunk_apply", l, dk, dv,
                               (("c", c), ("y_intra", y_intra)),
                               (("ca", ca), ("s_prev", s_prev)))
+    if code == _DTYPES[torch.bfloat16]:
+        c, y_intra, s_prev = _aligned(c, y_intra, s_prev)
     _local, apply, error_string = _entries()
     with torch.cuda.device(c.device):
         out = torch.empty((g, l, dv), dtype=y_intra.dtype, device=c.device)

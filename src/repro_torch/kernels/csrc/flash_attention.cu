@@ -101,27 +101,6 @@ __host__ __device__ constexpr int bf16_smem_bytes() {
   return (kQWG + 4) * tile_bytes<DP>();   // Q tiles, two K and two V stages
 }
 
-// Byte offset of 16-byte chunk c (columns 8c..8c+7) of row r in a core-matrix
-// tile of depth DP.
-template <int DP>
-__device__ __forceinline__ int chunk_off(int r, int c) {
-  return ((r >> 3) * (DP / 8) + c) * 128 + (r & 7) * 16;
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool in) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(in ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
 // Rows row0..row0+63 of a (rows, d) bf16 matrix into a core-matrix tile;
 // rows past `rows` are zero-filled.  Eight neighbouring threads fill one
 // 128-byte core matrix; a warp reads 8 rows x 64 contiguous bytes.
@@ -137,7 +116,7 @@ __device__ __forceinline__ void load_tile(unsigned char* tile,
     const int r = (rest / chunks) * 8 + rr;
     const bool in = row0 + r < rows;
     const __nv_bfloat16* src = g + (long long)(in ? row0 + r : 0) * d + c * 8;
-    cp_async16(tile + chunk_off<DP>(r, c), src, in);
+    wgmma::cp_async16(tile + wgmma::cm_offset(r, c, DP), src, in);
   }
 }
 
@@ -149,20 +128,9 @@ __device__ __forceinline__ void zero_pad(unsigned char* tile, int d) {
   const int pad = DP / 8 - c0;
   for (int i = threadIdx.x; i < kBQ * pad; i += kBF16Threads) {
     const int r = i / pad, c = c0 + i % pad;
-    *reinterpret_cast<uint4*>(tile + chunk_off<DP>(r, c)) =
+    *reinterpret_cast<uint4*>(tile + wgmma::cm_offset(r, c, DP)) =
         make_uint4(0u, 0u, 0u, 0u);
   }
-}
-
-// wgmma descriptors of the core-matrix tiles: the depth neighbour of a core
-// matrix is 128 bytes on, the 8-row neighbour DP * 16 bytes on.
-template <int DP>
-__device__ __forceinline__ uint64_t desc_k_major(const unsigned char* p) {
-  return wgmma::desc(p, /*lbo (along K)=*/128, /*sbo (along M, N)=*/DP * 16);
-}
-template <int DP>
-__device__ __forceinline__ uint64_t desc_n_major(const unsigned char* p) {
-  return wgmma::desc(p, /*lbo (along K)=*/DP * 16, /*sbo (along N)=*/128);
 }
 
 template <int DP>
@@ -204,11 +172,11 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
   load_tile<DP>(ks[0], kg, 0, lk, d);
   load_tile<DP>(vs[0], vg, 0, lk, d);
-  cp_async_commit();
+  wgmma::cp_async_commit();
   if (last >= 1) {
     load_tile<DP>(ks[1], kg, kBK, lk, d);
     load_tile<DP>(vs[1], vg, kBK, lk, d);
-    cp_async_commit();
+    wgmma::cp_async_commit();
   }
 
   const int warp = (threadIdx.x % kWG) >> 5;
@@ -225,9 +193,9 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   for (int kt = 0; kt <= last; ++kt) {
     const int st = kt & 1;
     if (kt + 1 <= last) {
-      cp_async_wait<1>();
+      wgmma::cp_async_wait<1>();
     } else {
-      cp_async_wait<0>();
+      wgmma::cp_async_wait<0>();
     }
     wgmma::fence_async_smem();
     __syncthreads();
@@ -244,8 +212,8 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       wgmma::fence();
 #pragma unroll
       for (int step = 0; step < DP / 16; ++step) {
-        wgmma::wgmma_ss_n64(s, desc_k_major<DP>(qs + step * 256),
-                            desc_k_major<DP>(ks[st] + step * 256), step);
+        wgmma::wgmma_ss_n64(s, wgmma::desc_k_major(qs + step * 256, DP),
+                            wgmma::desc_k_major(ks[st] + step * 256, DP), step);
       }
       wgmma::commit();
       wgmma::wait_all();
@@ -300,12 +268,8 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       for (int j = 0; j < 4; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float p0 = s[8 * j + 2 * e];
-          const float p1 = s[8 * j + 2 * e + 1];
-          hi[j][e] = wgmma::pack_bf16(p0, p1);
-          const float h0 = __uint_as_float(hi[j][e] << 16);
-          const float h1 = __uint_as_float(hi[j][e] & 0xffff0000u);
-          lo[j][e] = wgmma::pack_bf16(p0 - h0, p1 - h1);
+          wgmma::split_bf16(s[8 * j + 2 * e], s[8 * j + 2 * e + 1], hi[j][e],
+                            lo[j][e]);
         }
       }
 #pragma unroll
@@ -313,7 +277,7 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       wgmma::fence();
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const uint64_t vd = desc_n_major<DP>(vs[st] + j * 2 * DP * 16);
+        const uint64_t vd = wgmma::desc_n_major(vs[st] + j * 2 * DP * 16, DP);
         wgmma::rs<DP>(o, hi[j], vd);
         wgmma::rs<DP>(o, lo[j], vd);
       }
@@ -327,7 +291,7 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     if (kt + 2 <= last) {
       load_tile<DP>(ks[st], kg, (kt + 2) * kBK, lk, d);
       load_tile<DP>(vs[st], vg, (kt + 2) * kBK, lk, d);
-      cp_async_commit();
+      wgmma::cp_async_commit();
     }
   }
 

@@ -1,16 +1,22 @@
 // Hopper warpgroup matrix multiply (wgmma, sm_90a only) on bf16 operands
 // with float32 accumulators, as inline PTX: the shared-memory matrix
-// descriptor, the fence / commit / wait instructions, and the two shapes
-// flash_attention.cu issues.
+// descriptor, the fence / commit / wait instructions and the shapes the
+// kernels issue; and what feeds them: the core-matrix tile layout,
+// 16- and 4-byte cp.async copies, tensor-memory-accelerator (TMA) copies
+// completing on an mbarrier, ldmatrix, and the split of a float32 pair
+// into two bf16 terms.  flash_attention.cu and chunk_scan.cu use it.
 //
 // Shared-memory layout: no swizzle (the descriptor's INTERLEAVE mode).
 // A matrix is cut into core matrices of 8 rows x 16 bytes (8 bf16), each
-// stored as 128 contiguous bytes, row after row.  The descriptor gives the
-// byte distance between core matrices that are neighbours along the
-// product's depth (K: the leading byte offset) and along its rows or
-// columns (M or N: the stride byte offset).  A K-major operand (Q, K) has
-// its rows along M or N and 8 depth values a row; an N-major operand (V,
-// read transposed) has its rows along K and 8 columns of N a row.
+// stored as 128 contiguous bytes, row after row; a tile of depth dp (a
+// multiple of 8) stores 16-byte chunk c of row r at
+// ((r / 8) * (dp / 8) + c) * 128 + (r % 8) * 16 (cm_offset).  The
+// descriptor gives the byte distance between core matrices that are
+// neighbours along the product's depth (K: the leading byte offset) and
+// along its rows or columns (M or N: the stride byte offset).  A K-major
+// operand (Q, K, C, B) has its rows along M or N and 8 depth values a row;
+// an N-major operand (V, S_prev: read transposed) has its rows along K and
+// 8 columns of N a row.
 //
 // Accumulator fragment of m64nNk16 (f32), thread t of the warpgroup, warp
 // w = t / 32, lane l: registers 4i..4i+3 hold rows 16w + l/4 (two values)
@@ -18,6 +24,10 @@
 // operand (m64k16 bf16) holds the same rows at depth 2(l%4), +1 (a[0] row
 // r, a[1] row r + 8) and 8 + 2(l%4), +1 (a[2], a[3]): so the accumulator
 // of one product, rounded to bf16 in pairs, is the A operand of the next.
+// ldmatrix_x4 of the four 8 x 8 blocks (rows 0-7, depth 0-7), (rows 8-15,
+// depth 0-7), (rows 0-7, depth 8-15), (rows 8-15, depth 8-15) of a warp's
+// 16 rows gives the same four registers; ldmatrix_x4_trans does it for a
+// matrix stored with its depth along the stored rows (an M-major A).
 
 #pragma once
 
@@ -26,9 +36,13 @@
 
 namespace wgmma {
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
 __device__ __forceinline__ uint64_t desc(const void* smem, uint32_t lbo,
                                          uint32_t sbo) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const uint32_t addr = smem_addr(smem);
   return (uint64_t)((addr & 0x3FFFF) >> 4) |
          ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);   // base 0, no swizzle
@@ -60,6 +74,122 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   uint32_t r;
   asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
   return r;
+}
+
+// Splits (x0, x1) into two bf16 pairs, hi = (x0, x1) rounded and lo = what
+// that rounding left, rounded: hi + lo keeps ~16 bits of each value where
+// one bf16 keeps 8 (error at most 2^-17 of the value).
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = pack_bf16(x0, x1);
+  lo = pack_bf16(x0 - __uint_as_float(hi << 16),
+                 x1 - __uint_as_float(hi & 0xffff0000u));
+}
+
+// The two bf16 values of a pair, widened to float32.
+__device__ __forceinline__ float bf16_lo(uint32_t r) {
+  return __uint_as_float(r << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t r) {
+  return __uint_as_float(r & 0xffff0000u);
+}
+
+// Waits until at most N committed wgmma groups are in flight.
+template <int N>
+__device__ __forceinline__ void wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Byte offset of 16-byte chunk c (depth 8c..8c+7) of row r in a
+// core-matrix tile of depth dp.
+__host__ __device__ __forceinline__ int cm_offset(int r, int c, int dp) {
+  return ((r >> 3) * (dp >> 3) + c) * 128 + (r & 7) * 16;
+}
+
+// Descriptors of core-matrix tiles of depth dp: K-major (rows along M or N,
+// depth along K: a depth neighbour 128 bytes on, an 8-row neighbour dp * 16
+// bytes on) and N-major (rows along K: the 8-row neighbour is the depth
+// neighbour, dp * 16 bytes on, and a column chunk 128 bytes on).
+__device__ __forceinline__ uint64_t desc_k_major(const void* p, int dp) {
+  return desc(p, /*lbo (along K)=*/128, /*sbo (along M, N)=*/dp * 16);
+}
+__device__ __forceinline__ uint64_t desc_n_major(const void* p, int dp) {
+  return desc(p, /*lbo (along K)=*/dp * 16, /*sbo (along N)=*/128);
+}
+
+// A warp's four 8 x 8 bf16 blocks: lane l gives the address of row l % 8
+// of block l / 8 (16 contiguous bytes).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const uint32_t a = smem_addr(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  const uint32_t a = smem_addr(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+// cp.async copies into shared memory; a copy with `in` false writes zeros
+// and reads nothing.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool in) {
+  const uint32_t d = smem_addr(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(in ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool in) {
+  const uint32_t d = smem_addr(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(d), "l"(src), "r"(in ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Tensor-memory-accelerator copies (cp.async.bulk.tensor) into shared
+// memory, completing on an mbarrier: one thread arms the barrier with the
+// bytes to expect and issues the copies; every thread waits on the phase.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n"
+      :: "r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"(map), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_5d(void* dst, const void* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"(map), "r"(smem_addr(bar)), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
 }
 
 // D (64 x 64, f32) {+}= A (smem) * B (smem), bf16, K-major A and B.

@@ -21,7 +21,7 @@ Backends:
                           backends do
 
 Sequence sharding over mesh axes (``axis_names``) waits for
-``core/distributed.py`` (``ROADMAP.md`` Queue 1 item 4).
+``core/distributed.py`` (``ROADMAP.md`` Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -52,7 +52,7 @@ def _no_sequence_sharding(axis_names) -> None:
     if axis_names:
         raise NotImplementedError(
             "sequence-sharded ssd_scan (axis_names) is not ported yet: it "
-            "needs core/distributed.py (ROADMAP.md Queue 1 item 4)"
+            "needs core/distributed.py (ROADMAP.md Queue 1 item 6)"
         )
 
 

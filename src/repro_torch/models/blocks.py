@@ -3,7 +3,7 @@
 
 Ported kinds: ``attn``, ``shared_attn`` and ``mamba2``.  ``moe`` (and
 ``moe.py``), ``mlstm``, ``slstm`` and cross-attention (``xattn``) come in
-later slices (``ROADMAP.md`` Queue 1 item 5) and raise until then.
+later slices (``ROADMAP.md`` Queue 1 items 4.2-4.4) and raise until then.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ _UNPORTED_KINDS = ("moe", "mlstm", "slstm")
 
 def _not_ported(what: str):
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md Queue 1 item 5)"
+        f"{what} is not ported yet (ROADMAP.md Queue 1 item 4)"
     )
 
 

@@ -7,9 +7,10 @@ dim n_super, as in the reference; the forward pass is a Python loop over
 superblocks that indexes them.  ``shared_attn`` blocks (zamba2) keep one
 unstacked parameter set used by every superblock.
 
-Not ported yet (``ROADMAP.md`` Queue 1 item 5): ``loss_fn`` (training),
-``_encode`` and the patch/audio frontends; they raise.  The reference's
-``shardctx`` constraints are no-ops without a mesh and are dropped.
+Not ported yet: ``loss_fn`` (training, ``ROADMAP.md`` Queue 1 item 5),
+``_encode`` and the patch/audio frontends (Queue 1 item 4.4); they raise.
+The reference's ``shardctx`` constraints are no-ops without a mesh and are
+dropped.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, Any]:
     if cfg.encoder_layers:
         raise NotImplementedError(
             "encoder-decoder configurations are not ported yet "
-            "(ROADMAP.md Queue 1 item 5)"
+            "(ROADMAP.md Queue 1 item 4.4)"
         )
     params: Dict[str, Any] = {
         "embed": embed_init(gen, cfg.padded_vocab, cfg.d_model, cfg.pdtype),
@@ -59,7 +60,7 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, Any]:
 def _encode(params, cfg: ArchConfig, frames):
     raise NotImplementedError(
         "the encoder (whisper's audio frontend) is not ported yet "
-        "(ROADMAP.md Queue 1 item 5)"
+        "(ROADMAP.md Queue 1 item 4.4)"
     )
 
 
@@ -68,7 +69,7 @@ def _embed_inputs(params, cfg: ArchConfig, batch):
     if cfg.frontend != "none":
         raise NotImplementedError(
             f"the {cfg.frontend!r} frontend is not ported yet "
-            "(ROADMAP.md Queue 1 item 5)"
+            "(ROADMAP.md Queue 1 item 4.4)"
         )
     x = embed(params["embed"], batch["tokens"]).to(cfg.cdtype)
     return x, 0
@@ -152,7 +153,7 @@ def init_decode_states(cfg: ArchConfig, batch: int, max_len: int, device=None):
     if cfg.encoder_layers:
         raise NotImplementedError(
             "encoder-decoder configurations are not ported yet "
-            "(ROADMAP.md Queue 1 item 5)"
+            "(ROADMAP.md Queue 1 item 4.4)"
         )
     if cfg.scan_layers:
         blocks = {}

@@ -29,7 +29,7 @@ pair's result independent of the sub-batch it runs in.
 frame of the previous chunk and the frames of the chunk being scanned, so
 after each feed the session evicts everything else (:class:`_FrameStore`).
 
-Not ported yet (``ROADMAP.md`` Queue 1 item 4): ``checkpoint``/``restore``
+Not ported yet (``ROADMAP.md`` Queue 1 item 3): ``checkpoint``/``restore``
 and the persistent compile cache (``runtime/compile_cache.py``).  The
 ``compile`` timing stage holds the one-time kernel build, and the
 compile-cache counters stay 0.
@@ -274,8 +274,7 @@ class _ChunkSummary:
 
 _session_ids = itertools.count()
 
-_NOT_PORTED_ITEM = ("Queue 1 item 4 (compile cache, checkpoint/restore, "
-                    "simulator, serving, sharded)")
+_NOT_PORTED_ITEM = "Queue 1 item 3 (compile cache, checkpoint/restore)"
 
 
 class SeriesSession:

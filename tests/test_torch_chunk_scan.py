@@ -43,8 +43,14 @@ def _t(*arrs):
     return [torch.from_numpy(np.array(a)) for a in arrs]
 
 
+# The odd shapes are those the CUDA kernels pad (L to 64 or 128 rows, dk and
+# dv to multiples of 16): on the card they are held to these plain versions.
+_ODD_SHAPES = [(3, 65, 32, 64), (2, 100, 112, 40), (2, 128, 8, 128),
+               (4, 1, 16, 16)]
+
+
 @pytest.mark.parametrize("g,l,dk,dv", [(4, 128, 32, 64), (3, 64, 16, 32),
-                                       (2, 128, 64, 112)])
+                                       (2, 128, 64, 112), *_ODD_SHAPES])
 def test_chunk_local_matches_reference_kernel(g, l, dk, dv):
     c, b, v, ca = _chunk_np(g, l, dk, dv, seed=g + l)
     y_r, s_r = ref_cs.chunk_local(*(jnp.asarray(a) for a in (c, b, v, ca)),
@@ -55,7 +61,8 @@ def test_chunk_local_matches_reference_kernel(g, l, dk, dv):
     np.testing.assert_allclose(s.numpy(), np.asarray(s_r), rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("g,l,dk,dv", [(3, 64, 16, 32), (2, 128, 64, 64)])
+@pytest.mark.parametrize("g,l,dk,dv", [(3, 64, 16, 32), (2, 128, 64, 64),
+                                       *_ODD_SHAPES])
 def test_chunk_apply_matches_reference_kernel(g, l, dk, dv):
     c, _b, v, ca = _chunk_np(g, l, dk, dv, seed=7)
     rng = np.random.default_rng(8)

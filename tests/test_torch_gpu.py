@@ -714,8 +714,17 @@ _BF16_TOL = (8e-3, 1e-3)
 _TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: _BF16_TOL}
 
 
+# The serving shape; the bf16 kernels' edges: L = 1 and 65 (one row of the
+# second 64-row half), dk and dv of 8 and 128 (one padded k-step, two
+# warpgroups on the state summary), dv padded to 48, and G = 133, 300 and
+# 600, which leave the resident grid's last blocks a g short or idle and
+# reuse each stage (600 with L = 100: the cp.async path's padding).
 @pytest.mark.parametrize("g,l,dk,dv", [(1792, 128, 64, 64), (16, 128, 128, 128),
-                                       (6, 32, 16, 16), (5, 100, 112, 40)])
+                                       (6, 32, 16, 16), (5, 100, 112, 40),
+                                       (7, 1, 16, 16), (9, 65, 64, 64),
+                                       (4, 128, 8, 128), (4, 96, 128, 8),
+                                       (133, 128, 64, 64), (300, 64, 32, 48),
+                                       (600, 100, 24, 40)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("log_a_shift", [0.0, -2.0])
 def test_chunk_kernels_match_plain(cuda, g, l, dk, dv, dtype, log_a_shift):
@@ -739,6 +748,53 @@ def test_chunk_kernels_match_plain(cuda, g, l, dk, dv, dtype, log_a_shift):
     assert o_k.dtype == dtype
     torch.testing.assert_close(o_k.float(), o_p.float(), rtol=rtol,
                                atol=max(atol, 1e-4))
+
+
+def test_chunk_kernels_take_views_off_a_16_byte_boundary(cuda):
+    """The bf16 kernels copy 16-byte pieces of rows; a view that starts two
+    bytes into its storage is copied first, not refused."""
+    from repro_torch.kernels import chunk_scan as cs
+
+    g, l, dk, dv = 3, 64, 16, 16
+    c, b, v, ca = _chunk_inputs(g, l, dk, dv, torch.bfloat16, cuda)
+    c_off = torch.empty(c.numel() + 1, dtype=c.dtype, device=cuda)[1:]
+    c_off.copy_(c.reshape(-1))
+    c_off = c_off.view(g, l, dk)
+    assert c_off.data_ptr() % 16 != 0
+    y_k, s_k = cs.chunk_local_cuda(c_off, b, v, ca)
+    y_p, s_p = cs.chunk_local_reference(c, b, v, ca)
+    torch.testing.assert_close(y_k.float(), y_p.float(), rtol=_BF16_TOL[0],
+                               atol=_BF16_TOL[1])
+    torch.testing.assert_close(s_k, s_p, rtol=1e-4, atol=1e-4)
+    s_prev = torch.zeros((g, dk, dv), device=cuda)
+    o_k = cs.chunk_apply_cuda(c_off, ca, y_p, s_prev)
+    torch.testing.assert_close(o_k.float(), y_p.float(), rtol=0, atol=0)
+
+
+def test_chunk_scan_bf16_kernels_use_the_tensor_cores(cuda):
+    """The built chunk_scan library's bf16 kernels hold HGMMA (wgmma)
+    instructions: their products run on the tensor cores (the method of
+    chip_smoke.py's _hgmma_count)."""
+    import os
+    import subprocess
+
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels import chunk_scan as cs
+
+    cs.ensure_built()
+    cuobjdump = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", _cuda.library_path(cs.LIBRARY)],
+                          capture_output=True, text=True, check=True).stdout
+    hgmma = {}
+    kernel = None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            kernel = ln.split("Function :")[1].strip()
+        elif "HGMMA" in ln:
+            hgmma[kernel] = hgmma.get(kernel, 0) + 1
+    for name in ("chunk_local_bf16_kernel", "chunk_apply_bf16_kernel"):
+        assert any(name in k for k in hgmma), (name, sorted(hgmma))
+    assert not any("f32_kernel" in k for k in hgmma)
 
 
 def test_chunk_kernels_refuse_what_they_do_not_take(cuda):

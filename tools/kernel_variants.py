@@ -18,7 +18,9 @@ serving path's prefill), ``lookback_scan`` (add over 2^24 x 1 floats in
 ``fused_plan`` kernel of ``fused_round.cu``: a Ladner-Fischer plan over
 2^16 x 1 floats in one launch, as the pallas backend's rounds mode runs
 it) and ``tile_apply`` (add over 2^24 x 1 floats in 16 tiles, e.g.
-``kApplyLoads``: float4 loads in flight a thread).  For ``fused_round`` the
+``kApplyLoads``: float4 loads in flight a thread), ``chunk_local`` and
+``chunk_apply`` (bf16 at the serving path's G = 1792, L = 128, dk = dv =
+64; e.g. ``chunk_local kLocalTma 0 1``).  For ``fused_round`` the
 name ``C`` varies the cluster size instead, a launch argument (no
 rebuild), and ``--n``/``--d`` set the plan's rows and row width::
 
@@ -50,7 +52,9 @@ from repro_torch.kernels import _cuda  # noqa: E402
 SOURCES = {"flash_attention": ("flash_attention", "flash_attention_launch"),
            "lookback_scan": ("lookback_scan", "lookback_scan_launch"),
            "fused_round": ("fused_round", "fused_plan_launch"),
-           "tile_apply": ("tile_scan", "tile_apply_launch")}
+           "tile_apply": ("tile_scan", "tile_apply_launch"),
+           "chunk_local": ("chunk_scan", "chunk_local_launch"),
+           "chunk_apply": ("chunk_scan", "chunk_apply_launch")}
 
 
 def _build(kernel: str, name: str, value: int):
@@ -187,8 +191,67 @@ def _tile_apply(device):
     return run, check, argtypes
 
 
+def _chunk_inputs(device):
+    cfg, g, l = chip_smoke._lm_shapes()
+    dk, dv = cfg.ssm_state, cfg.ssm_head_dim
+    c, b, v, ca = chip_smoke._chunk_inputs(g, l, dk, dv, torch.bfloat16,
+                                           device, seed=20)
+    return (g, l, dk, dv), c, b, v, ca
+
+
+def _chunk_local(device):
+    from repro_torch.kernels import chunk_scan as cs
+
+    (g, l, dk, dv), c, b, v, ca = _chunk_inputs(device)
+    want_y, want_s = cs.chunk_local_reference(c, b, v, ca)
+
+    def run(fn):
+        y = torch.empty_like(v)
+        s = torch.empty((g, dk, dv), device=device)
+        err = fn(1, c.data_ptr(), b.data_ptr(), v.data_ptr(), ca.data_ptr(),
+                 y.data_ptr(), s.data_ptr(), g, l, dk, dv,
+                 torch.cuda.current_stream(device).cuda_stream)
+        assert err == 0, err
+        return y, s
+
+    def check(out):
+        chip_smoke._close_to(out[0], want_y, *chip_smoke.BF16_TOL, "variant")
+        chip_smoke._close_to(out[1], want_s, *chip_smoke.STATE_TOL, "variant")
+
+    argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                + [ctypes.c_void_p])
+    return run, check, argtypes
+
+
+def _chunk_apply(device):
+    from repro_torch.kernels import chunk_scan as cs
+
+    (g, l, dk, dv), c, b, v, ca = _chunk_inputs(device)
+    y_intra, _ = cs.chunk_local_reference(c, b, v, ca)
+    gen = torch.Generator(device=device).manual_seed(21)
+    s_prev = torch.randn((g, dk, dv), generator=gen, device=device)
+    want = cs.chunk_apply_reference(c, ca, y_intra, s_prev)
+
+    def run(fn):
+        out = torch.empty_like(y_intra)
+        err = fn(1, c.data_ptr(), ca.data_ptr(), y_intra.data_ptr(),
+                 s_prev.data_ptr(), out.data_ptr(), g, l, dk, dv,
+                 torch.cuda.current_stream(device).cuda_stream)
+        assert err == 0, err
+        return out
+
+    def check(out):
+        rtol, atol = chip_smoke.BF16_TOL
+        chip_smoke._close_to(out, want, rtol, max(atol, 1e-4), "variant")
+
+    argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                + [ctypes.c_void_p])
+    return run, check, argtypes
+
+
 KERNELS = {"flash_attention": _flash, "lookback_scan": _lookback,
-           "fused_round": _fused_plan, "tile_apply": _tile_apply}
+           "fused_round": _fused_plan, "tile_apply": _tile_apply,
+           "chunk_local": _chunk_local, "chunk_apply": _chunk_apply}
 
 
 def main() -> int:
