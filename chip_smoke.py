@@ -41,8 +41,8 @@ Output, one line each: ``env``, ``build``, ``kernel warp_ncc``,
 ``kernel lookback_scan``, ``kernel tile_local_scan``, ``kernel tile_apply``,
 ``kernel fused_round`` (the per-round kernel and the whole-plan
 ``fused_plan`` kernel), ``kernel chunk_local``, ``kernel chunk_apply``,
-``kernel flash_attention``, ``redesign`` (the six kernels redesigned for
-Hopper, flash_attention, lookback_scan, fused_round, tile_apply,
+``kernel flash_attention``, ``redesign`` (the seven kernels redesigned for
+Hopper, warp_ncc, flash_attention, lookback_scan, fused_round, tile_apply,
 chunk_local and chunk_apply, beside their previous designs: times, the
 library call's, the bound, the HGMMA count of flash_attention's and
 chunk_scan's SASS and lookback_scan's longest walk),
@@ -181,20 +181,25 @@ def check_warp_ncc(device, power_w: float) -> dict:
             a = torch.tensor(ang, device=device)
             s = torch.tensor(shift, device=device)
             w_k, s_k = wn.warp_ncc_sums_cuda(img, ref, a, s, tile=tile)
+            w_2, n_k = wn.warp_ncc(img, ref, a, s, tile=tile)
             w_p, s_p = wn.warp_ncc_sums_reference(img, ref, a, s, tile=tile)
             torch.cuda.synchronize()
+            what = f"warp_ncc (tile {tile}, case {ang}, {shift})"
             bad = (w_k - w_p).abs() > WARP_ATOL + WARP_RTOL * w_p.abs()
             if bool(bad.any()):
-                raise AssertionError(
-                    f"warp_ncc warped image disagrees (tile {tile}, "
-                    f"case {ang}, {shift}): {int(bad.sum())} pixels"
-                )
-            dn = float((wn.fold(s_k) - wn.fold(s_p)).abs())
+                raise AssertionError(f"{what}: warped image disagrees in "
+                                     f"{int(bad.sum())} pixels")
+            if not torch.equal(w_k, w_2):
+                raise AssertionError(f"{what}: two launches differ")
+            if not (bool((s_k[:, 5] == tile * tile).all())
+                    and not bool(s_k[:, 6:].any())):
+                raise AssertionError(f"{what}: area or zero columns wrong")
+            want = wn.fold(s_p)
+            dn = max(float((wn.fold(s_k) - want).abs()),
+                     float((n_k - want).abs()))
             if not dn <= NCC_ATOL:
-                raise AssertionError(
-                    f"warp_ncc ncc disagrees (tile {tile}, case {ang}, "
-                    f"{shift}): {dn}"
-                )
+                raise AssertionError(f"{what}: ncc (card fold and host "
+                                     f"fold of its sums) off by {dn}")
             err_w = max(err_w, float((w_k - w_p).abs().max()))
             err_n = max(err_n, dn)
             err_s = max(err_s, float(((s_k - s_p).abs()
@@ -202,6 +207,11 @@ def check_warp_ncc(device, power_w: float) -> dict:
     a = torch.tensor(0.07, device=device)
     s = torch.tensor((1.5, 0.7), device=device)
     ms = _time_ms(lambda: wn.warp_ncc_sums_cuda(img, ref, a, s, tile=32))
+    graph_ms = _graph_ms(lambda: wn.warp_ncc_sums_cuda(img, ref, a, s,
+                                                       tile=32))
+    # With the fold on the card: the guess check's two launches.
+    fold_graph_ms = _graph_ms(lambda: wn.warp_ncc(img, ref, a, s, tile=32))
+    check = _guess_check(ref, img, {"angle": a, "shift": s})
     plain_ms = _time_ms(
         lambda: wn.warp_ncc_sums_reference(img, ref, a, s, tile=32), reps=10
     )
@@ -216,13 +226,58 @@ def check_warp_ncc(device, power_w: float) -> dict:
         "shape": [SIZE, SIZE], "tile": 32, "cases": len(cases) * 2,
         "max_abs_err": err_w, "max_abs_err_ncc": err_n,
         "max_rel_err_sums": err_s,
-        "ms": ms, "plain_ms": plain_ms,
+        "ms": ms, "graph_ms": graph_ms,
+        "graph_ms_with_fold": fold_graph_ms, "plain_ms": plain_ms,
+        "guess_check": check,
+        "timing": "ms: warp_ncc_sums_cuda back to back (CUDA events, "
+                  "wrapper included); graph_ms: the same replayed from a "
+                  "CUDA graph (the kernel's device time); "
+                  "graph_ms_with_fold: warp_ncc, kernel and fold",
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "bound_ms_at_power_limit": max(bytes_ms, ops_ms)
         * FULL_POWER_W / min(power_w, FULL_POWER_W),
         "library_ms": None,
     }
+
+
+def _guess_check(ref, tmpl, d, reps: int = 50) -> dict:
+    """One guess check of the registration operator as the series path
+    makes it (``fused_ncc_distance``, then ``float()``, which syncs): its
+    wall ms on the host clock, and the kernels and copies it puts on the
+    card a check, counted by ``torch.profiler`` over ``reps`` checks."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.registration import fused_ncc_distance
+
+    def one():
+        return float(fused_ncc_distance(ref, tmpl, d))
+
+    for _ in range(5):
+        one()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        one()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            one()
+    kernels = copies = launch_calls = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            if e.name.startswith(("Memcpy", "Memset")):
+                copies += 1
+            else:
+                kernels += 1
+        elif e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC"):
+            launch_calls += 1
+    return {"wall_ms": wall_ms, "kernels_per_check": kernels / reps,
+            "launch_calls_per_check": launch_calls / reps,
+            "copies_per_check": copies / reps, "reps": reps,
+            "timing": f"host clock over {reps} checks after 5 warm-ups; "
+                      "kernels and copies: torch.profiler device events, "
+                      "launch calls: its cudaLaunchKernel runtime events"}
 
 
 def _bound(nbytes: float, ops: float, peak_ops: float = PEAK_F32_FLOPS) -> dict:
@@ -1219,8 +1274,9 @@ def check_flash_attention(device) -> dict:
 # rows read twice and a one-tile-at-a-time walk; fused_round as one launch
 # a round of the plan; tile_apply as one thread a row; chunk_local and
 # chunk_apply with bf16 staged as float32 and the products on the CUDA
-# cores): their times as PERF.md records them, used when --previous-csrc
-# does not name the sources to build and time them in this run.
+# cores; warp_ncc as a block a tile, its sums folded by PyTorch ops): their
+# times as PERF.md records them, used when --previous-csrc does not name
+# the sources to build and time them in this run.
 PREVIOUS_RECORDED = {
     "flash_attention": {"ms": 0.543, "origin": "PERF.md §6 row 8, the "
                         "previous design (NVIDIA H100 80GB HBM3, 700.00 W)"},
@@ -1235,25 +1291,25 @@ PREVIOUS_RECORDED = {
                     "design (NVIDIA H100 80GB HBM3, 700.00 W)"},
     "chunk_apply": {"ms": 0.236, "origin": "PERF.md §6 row 7, the previous "
                     "design (NVIDIA H100 80GB HBM3, 700.00 W)"},
+    "warp_ncc": {"ms": 0.0359, "origin": "PERF.md §6 row 1, the previous "
+                 "design (NVIDIA H100 80GB HBM3, 700.00 W)"},
 }
 
 # The kernels whose previous design --previous-csrc builds (this slice's
 # redesigns; the earlier ones are quoted from PERF.md): each one's library
 # (csrc/<source>.cu) and the argument types of its C entry <name>_launch.
 _PREVIOUS_ENTRIES = {
-    "chunk_local": ("chunk_scan",
-                    [ctypes.c_int] + [ctypes.c_void_p] * 6
-                    + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
-    "chunk_apply": ("chunk_scan",
-                    [ctypes.c_int] + [ctypes.c_void_p] * 5
-                    + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
+    # params [angle, shift_y, shift_x], img, ref, warped, sums; h, w, tile.
+    "warp_ncc": ("warp_ncc",
+                 [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                 + [ctypes.c_void_p]),
 }
 
 
 def _previous_launch(csrc: str, name: str):
     """Kernel ``name`` built from another checkout's ``csrc`` directory with
-    the port's nvcc flags; returns its typed launch entry point (the C
-    interfaces of the redesigned kernels are unchanged)."""
+    the port's nvcc flags; returns its launch entry point, typed with that
+    design's C interface."""
     from repro_torch.kernels import _cuda
 
     source, argtypes = _PREVIOUS_ENTRIES[name]
@@ -1284,28 +1340,31 @@ def _hgmma_count(name: str) -> int:
     return sum(1 for ln in sass.splitlines() if "HGMMA" in ln)
 
 
-def check_redesigns(device, kfa: dict, kl: dict, kf: dict, ka: dict,
-                    kcl: dict, kca: dict, previous_csrc: str = None) -> dict:
+def check_redesigns(device, kw: dict, kfa: dict, kl: dict, kf: dict,
+                    ka: dict, kcl: dict, kca: dict,
+                    previous_csrc: str = None) -> dict:
     """The redesigned kernels beside their previous designs at the main
-    path's shapes: flash_attention bf16 at (128, 512, 112), lookback_scan
-    add at 2^24 x 1, fused_round as Ladner-Fischer add at 2^16 x 1 (the
-    whole plan in one fused_plan launch against the previous design's
-    launch a round), tile_apply add at 2^24 x 1 over 16 tiles, and
-    chunk_local and chunk_apply bf16 at (1792, 128, 64, 64).  With
-    ``previous_csrc`` this slice's previous sources (chunk_local,
-    chunk_apply) are built, held against the plain versions and timed
-    here in turns (previous, new, new, previous), through their launch
-    entries and replayed from a CUDA graph; else, and for the kernels of
-    earlier slices, the previous times are PERF.md's.  The new kernels'
-    correctness is held in the check_* phases."""
+    path's shapes: warp_ncc at 1920x1920, tile 32, flash_attention bf16 at
+    (128, 512, 112), lookback_scan add at 2^24 x 1, fused_round as
+    Ladner-Fischer add at 2^16 x 1 (the whole plan in one fused_plan launch
+    against the previous design's launch a round), tile_apply add at 2^24 x
+    1 over 16 tiles, and chunk_local and chunk_apply bf16 at (1792, 128,
+    64, 64).  With ``previous_csrc`` this slice's previous source
+    (warp_ncc) is built, held against the plain version and timed here in
+    turns (previous, new, new, previous), through its launch entry and
+    replayed from a CUDA graph; else, and for the kernels of earlier slices,
+    the previous times are PERF.md's.  The new kernels' correctness is held
+    in the check_* phases."""
     from repro_torch.core.engine import get_plan
     from repro_torch.core.engine.pallas_backend import (
         _plan_operands, _round_index_tensors,
     )
+    from repro_torch.data.images import lattice_image
     from repro_torch.kernels import chunk_scan as cs
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import lookback_scan as lb
     from repro_torch.kernels import tile_scan as ts
+    from repro_torch.kernels import warp_ncc as wn
     from repro_torch.kernels._tiling import (
         default_num_tiles_cuda, plan_cluster_size,
     )
@@ -1330,10 +1389,32 @@ def check_redesigns(device, kfa: dict, kl: dict, kf: dict, ka: dict,
     dk, dv = cfg.ssm_state, cfg.ssm_head_dim
     cc, cb, cv, cca = _chunk_inputs(g, cl, dk, dv, torch.bfloat16, device,
                                     seed=20)
-    cy, cs_state = cs.chunk_local_reference(cc, cb, cv, cca)
+    cy, _ = cs.chunk_local_reference(cc, cb, cv, cca)
     gen = torch.Generator(device=device).manual_seed(21)
     csp = torch.randn((g, dk, dv), generator=gen, device=device)
-    new = {"flash_attention": lambda: fa.flash_attention_cuda(q, k, v),
+    # warp_ncc through its C entry (the previous design's is timed the same
+    # way), on one frame pair, and on four (177 MB with the warped images,
+    # past the 50 MB L2: each launch finds its frames cold, as a guess check
+    # of a series does).
+    frames = [lattice_image(SIZE, seed=i, device=device) for i in range(5)]
+    img, ref = frames[0], frames[1]
+    wa = torch.tensor(0.07, device=device)
+    ws = torch.tensor((1.5, 0.7), device=device)
+    n_tiles = (SIZE // 32) ** 2
+    warp_entry, _ = wn._launcher()
+
+    def new_warp(tmpl=img, ref=ref):
+        warped = torch.empty_like(tmpl)
+        sums = torch.empty((n_tiles, 8), device=device)
+        err = warp_entry(wa.data_ptr(), ws.data_ptr(), tmpl.data_ptr(),
+                         ref.data_ptr(), warped.data_ptr(), sums.data_ptr(),
+                         None, SIZE, SIZE, 32,
+                         torch.cuda.current_stream(device).cuda_stream)
+        assert err == 0, err
+        return warped, sums
+
+    new = {"warp_ncc": new_warp,
+           "flash_attention": lambda: fa.flash_attention_cuda(q, k, v),
            "lookback_scan": lambda: lb.lookback_scan_cuda(torch.add, x, t),
            "fused_round": lambda: ts.fused_plan_cuda(torch.add, xr, po)[0],
            "tile_apply": lambda: ts.tile_apply_cuda(torch.add, ploc, seeds),
@@ -1341,37 +1422,29 @@ def check_redesigns(device, kfa: dict, kl: dict, kf: dict, ka: dict,
            "chunk_apply": lambda: cs.chunk_apply_cuda(cc, cca, cy, csp)}
     previous = {}
     if previous_csrc:
-        pl, pa = (_previous_launch(previous_csrc, name)
-                  for name in _PREVIOUS_ENTRIES)
+        pw = _previous_launch(previous_csrc, "warp_ncc")
+        params = torch.cat([wa.reshape(1), ws])
 
-        def stream():
-            return torch.cuda.current_stream(device).cuda_stream
-
-        def prev_local():
-            y = torch.empty_like(cv)
-            s = torch.empty((g, dk, dv), device=device)
-            err = pl(1, cc.data_ptr(), cb.data_ptr(), cv.data_ptr(),
-                     cca.data_ptr(), y.data_ptr(), s.data_ptr(), g, cl, dk,
-                     dv, stream())
+        def prev_warp(tmpl=img, ref=ref):
+            warped = torch.empty_like(tmpl)
+            sums = torch.empty((n_tiles, 8), device=device)
+            err = pw(params.data_ptr(), tmpl.data_ptr(), ref.data_ptr(),
+                     warped.data_ptr(), sums.data_ptr(), SIZE, SIZE, 32,
+                     torch.cuda.current_stream(device).cuda_stream)
             assert err == 0, err
-            return y, s
+            return warped, sums
 
-        def prev_apply():
-            out = torch.empty_like(cy)
-            err = pa(1, cc.data_ptr(), cca.data_ptr(), cy.data_ptr(),
-                     csp.data_ptr(), out.data_ptr(), g, cl, dk, dv, stream())
-            assert err == 0, err
-            return out
-
-        previous = {"chunk_local": prev_local, "chunk_apply": prev_apply}
-        # The previous kernels compute the same function.
-        y_o, s_o = prev_local()
-        _close_to(y_o, cy, *BF16_TOL, "previous chunk_local y_intra")
-        _close_to(s_o, cs_state, *STATE_TOL, "previous chunk_local state")
-        _close_to(prev_apply(), cs.chunk_apply_reference(cc, cca, cy, csp),
-                  BF16_TOL[0], max(BF16_TOL[1], 1e-4), "previous chunk_apply")
-    rows = {"flash_attention": kfa, "lookback_scan": kl, "fused_round": kf,
-            "tile_apply": ka, "chunk_local": kcl, "chunk_apply": kca}
+        previous = {"warp_ncc": prev_warp}
+        # The previous kernel computes the same function.
+        w_o, s_o = prev_warp()
+        w_p, s_p = wn.warp_ncc_sums_reference(img, ref, wa, ws)
+        _close_to(w_o, w_p, WARP_RTOL, WARP_ATOL, "previous warp_ncc")
+        dn = float((wn.fold(s_o) - wn.fold(s_p)).abs())
+        if not dn <= NCC_ATOL:
+            raise AssertionError(f"previous warp_ncc ncc disagrees: {dn}")
+    rows = {"warp_ncc": kw, "flash_attention": kfa, "lookback_scan": kl,
+            "fused_round": kf, "tile_apply": ka, "chunk_local": kcl,
+            "chunk_apply": kca}
     out = {}
     for name, fn in new.items():
         if name in previous:
@@ -1395,6 +1468,27 @@ def check_redesigns(device, kfa: dict, kl: dict, kf: dict, ka: dict,
                      "library_ms": row["library_ms"],
                      "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                      "speedup_vs_previous": prev["previous_ms"] / ms}
+    cold = {"new": lambda: [new_warp(frames[i], frames[i + 1])
+                            for i in range(4)]}
+    if previous_csrc:
+        cold["previous"] = lambda: [previous["warp_ncc"](frames[i],
+                                                         frames[i + 1])
+                                    for i in range(4)]
+    turns = [name for name in ("previous", "new", "new", "previous")
+             if name in cold]
+    cold_ms = {}
+    for name in turns:
+        cold_ms.setdefault(name, []).append(_graph_ms(cold[name]) / 4)
+    out["warp_ncc"].update(
+        shape=[SIZE, SIZE], tile=32,
+        graph_ms_cold=min(cold_ms["new"]), cold_turns_ms=cold_ms,
+        timing="ms, previous_ms: through the C entries back to back, one "
+               "frame pair (the wrapper's time is kernel warp_ncc's ms); "
+               "graph_ms, previous_graph_ms: from a CUDA graph; "
+               "graph_ms_cold: a launch on each of four pairs from a graph, "
+               "over 4 (frames cold in L2)")
+    if "previous" in cold_ms:
+        out["warp_ncc"]["previous_graph_ms_cold"] = min(cold_ms["previous"])
     out["flash_attention"].update(shape=[bh, l, d], dtype="bf16",
                                   hgmma_in_sass=_hgmma_count(fa.NAME))
     out["lookback_scan"].update(
@@ -1683,10 +1777,10 @@ def main() -> int:
     ap.add_argument("--previous-csrc", default=None,
                     help="csrc directory of the kernels' previous designs "
                          "(e.g. from git archive of an earlier commit): "
-                         "build and time chunk_local and chunk_apply from "
-                         "there beside the current ones; without it, and "
-                         "for the kernels redesigned in earlier slices, the "
-                         "redesign line quotes PERF.md's times")
+                         "build and time warp_ncc from there beside the "
+                         "current one; without it, and for the kernels "
+                         "redesigned in earlier slices, the redesign line "
+                         "quotes PERF.md's times")
     args = ap.parse_args()
 
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -1748,7 +1842,7 @@ def main() -> int:
     _line("kernel chunk_apply", kc_apply)
     kfa = check_flash_attention(dev)
     _line("kernel flash_attention", kfa)
-    redesign = check_redesigns(dev, kfa, kl, kf, kt_apply, kc_local,
+    redesign = check_redesigns(dev, k, kfa, kl, kf, kt_apply, kc_local,
                                kc_apply, args.previous_csrc)
     _line("redesign", redesign)
     for name in ("flash_attention", "chunk_local"):

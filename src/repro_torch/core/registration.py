@@ -248,15 +248,16 @@ def fused_ncc_distance(
     """1 - NCC(ref, tmpl o d) through the fused warp+NCC kernel.
 
     One pass over output tiles computes the warp and the five NCC partial
-    sums (``kernels/warp_ncc.py``): the CUDA kernel for tensors on the card,
-    its plain PyTorch version for tensors on the CPU.  Equivalent to
+    sums (``kernels/warp_ncc.py``): for tensors on the card the CUDA kernel,
+    then its fold into the distance on the card (two launches, reading the
+    angle and shift tensors of ``d`` as they are); for tensors on the CPU
+    the plain PyTorch version.  Equivalent to
     :func:`~repro_torch.core.deformation.ncc_distance` up to fp
     accumulation order.
     """
-    from repro_torch.kernels.warp_ncc import warp_ncc
+    from repro_torch.kernels.warp_ncc import ncc_distance
 
-    _, corr = warp_ncc(tmpl, ref, d["angle"], d["shift"], tile=tile)
-    return 1.0 - corr
+    return ncc_distance(tmpl, ref, d["angle"], d["shift"], tile=tile)
 
 
 def fused_ncc_eligible(shape: Tuple[int, int], tile: int = 32) -> bool:

@@ -3,13 +3,15 @@
 Port of ``repro/kernels/warp_ncc.py``.  The registration operator's guess
 check evaluates D(R, T o phi) = 1 - NCC(R, T o phi); this kernel computes the
 warped template and the per-tile NCC partial sums in one pass over output
-tiles (``csrc/warp_ncc.cu``), and the host folds the ``(n_tiles, 8)`` sums
-into the NCC scalar with a few tensor operations on the same device.
+tiles (``csrc/warp_ncc.cu``), and a one-block kernel launched after it folds
+the ``(n_tiles, 8)`` sums into the NCC scalar on the card, so a guess check
+is two launches and one copy of the result to the host.
 
-:func:`warp_ncc` takes its route from where the tensors lie: on the CPU it
-runs :func:`warp_ncc_reference`, the plain PyTorch version of the same
-function; on a CUDA device it launches the kernel (building it at first use)
-or raises.  There is no fallback from the card to the plain version.
+:func:`warp_ncc` and :func:`ncc_distance` take their route from where the
+tensors lie: on the CPU they run :func:`warp_ncc_reference`, the plain
+PyTorch version of the same function; on a CUDA device they launch the
+kernels (building them at first use) or raise.  There is no fallback from
+the card to the plain version.
 """
 
 from __future__ import annotations
@@ -103,16 +105,30 @@ def _launcher():
         fn.restype = ctypes.c_int
         lib.warp_ncc_error_string.restype = ctypes.c_char_p
         lib.warp_ncc_error_string.argtypes = [ctypes.c_int]
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
     return fn, lib.warp_ncc_error_string
 
 
-def warp_ncc_sums_cuda(
-    img: torch.Tensor, ref: torch.Tensor, angle, shift, *, tile: int = 32
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel: ``(warped, sums)``.  Raises on anything the
-    kernel does not take (device, dtype, layout, tile divisibility)."""
-    _check_shapes(img, ref, tile)
+def _param(x, n: int, name: str, device: torch.device) -> torch.Tensor:
+    """``angle`` or ``shift`` as the kernel reads it: a contiguous f32
+    tensor of ``n`` values on ``device``.  A tensor is taken as it is (the
+    deformation's own, no copy) or refused; a Python number or sequence is
+    copied to the device."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.tensor(x, dtype=torch.float32, device=device)
+    if x.device != device:
+        raise ValueError(f"warp_ncc kernel: {name} is on {x.device}, the "
+                         f"images on {device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"warp_ncc kernel: {name} is {x.dtype}, not f32")
+    if x.numel() != n or not x.is_contiguous():
+        raise ValueError(f"warp_ncc kernel: {name} must be {n} contiguous "
+                         f"values, got shape {tuple(x.shape)}")
+    return x
+
+
+def _check_images(img: torch.Tensor, ref: torch.Tensor) -> None:
     for name, t in (("img", img), ("ref", ref)):
         if t.device.type != "cuda":
             raise ValueError(f"warp_ncc kernel: {name} is on {t.device}")
@@ -122,20 +138,48 @@ def warp_ncc_sums_cuda(
             raise ValueError(f"warp_ncc kernel: {name} is not contiguous")
     if ref.device != img.device:
         raise ValueError("warp_ncc kernel: img and ref on different devices")
+
+
+def _launch(img, ref, angle, shift, tile: int, *, with_ncc: bool):
+    """One launch of the warp kernel (and of the fold when ``with_ncc``):
+    ``(warped, sums, [ncc, 1 - ncc] or None)``."""
+    _check_shapes(img, ref, tile)
+    _check_images(img, ref)
+    dev = img.device
+    angle = _param(angle, 1, "angle", dev)
+    shift = _param(shift, 2, "shift", dev)
     fn, error_string = _launcher()
     h, w = img.shape
-    with torch.cuda.device(img.device):
-        params = _params(angle, shift, img.device)
-        warped = torch.empty((h, w), dtype=torch.float32, device=img.device)
-        sums = torch.empty(((h // tile) * (w // tile), 8),
-                           dtype=torch.float32, device=img.device)
-        stream = torch.cuda.current_stream(img.device).cuda_stream
-        err = fn(params.data_ptr(), img.data_ptr(), ref.data_ptr(),
-                 warped.data_ptr(), sums.data_ptr(), h, w, tile, stream)
+    n = h * w
+    rows = (h // tile) * (w // tile)
+    with torch.cuda.device(dev):
+        # One allocation for the three outputs (host time is most of a
+        # guess check).  h * w is a multiple of 256, so sums starts on a
+        # 16-byte boundary, as the fold's 16-byte reads need.
+        out = torch.empty((n + rows * 8 + 4,), dtype=torch.float32,
+                          device=dev)
+        warped = out[:n].view(h, w)
+        sums = out[n:n + rows * 8].view(rows, 8)
+        ncc = out[n + rows * 8:n + rows * 8 + 2] if with_ncc else None
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(angle.data_ptr(), shift.data_ptr(), img.data_ptr(),
+                 ref.data_ptr(), warped.data_ptr(), sums.data_ptr(),
+                 None if ncc is None else ncc.data_ptr(), h, w, tile, stream)
     if err != 0:
         msg = error_string(err).decode()
         raise RuntimeError(f"warp_ncc kernel launch failed: {msg} ({err})")
     LAUNCHES.add()
+    return warped, sums, ncc
+
+
+def warp_ncc_sums_cuda(
+    img: torch.Tensor, ref: torch.Tensor, angle, shift, *, tile: int = 32
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA kernel: ``(warped, sums)``.  Raises on anything the
+    kernel does not take (device, dtype, layout, tile divisibility; an
+    ``angle`` or ``shift`` tensor that is not contiguous f32 on the images'
+    device)."""
+    warped, sums, _ = _launch(img, ref, angle, shift, tile, with_ncc=False)
     return warped, sums
 
 
@@ -146,12 +190,24 @@ def warp_ncc(
 
     ``img`` (template T), ``ref`` (reference R): ``(H, W)`` with
     ``H, W % tile == 0``.  CPU tensors take the plain version; CUDA tensors
-    launch the kernel.
+    launch the kernel and its fold on the card.
     """
     if img.device.type == "cpu" and ref.device.type == "cpu":
         return warp_ncc_reference(img, ref, angle, shift, tile=tile)
-    warped, sums = warp_ncc_sums_cuda(img, ref, angle, shift, tile=tile)
-    return warped, fold(sums)
+    warped, _, ncc = _launch(img, ref, angle, shift, tile, with_ncc=True)
+    return warped, ncc[0]
+
+
+def ncc_distance(
+    img: torch.Tensor, ref: torch.Tensor, angle, shift, *, tile: int = 32
+) -> torch.Tensor:
+    """``1 - NCC(ref, img o phi)`` as a 0-d tensor: on the card the kernel
+    and its fold, two launches with nothing after them; on the CPU the
+    plain version."""
+    if img.device.type == "cpu" and ref.device.type == "cpu":
+        return 1.0 - warp_ncc_reference(img, ref, angle, shift, tile=tile)[1]
+    _, _, ncc = _launch(img, ref, angle, shift, tile, with_ncc=True)
+    return ncc[1]
 
 
 def ensure_built() -> float:

@@ -71,13 +71,77 @@ def test_warp_ncc_kernel_matches_plain(cuda, size, tile, ang, shift):
     ref = lattice_image(size, seed=1, device=cuda)
     a = torch.tensor(ang, device=cuda)
     s = torch.tensor(shift, device=cuda)
+    _check_warp_ncc(img, ref, a, s, tile)
+
+
+def _check_warp_ncc(img, ref, a, s, tile):
+    """The kernel against the plain version: warped within 1e-4, the NCC
+    folded on the card and on the host within 1e-5 of the plain sums'
+    fold, the area and zero columns exact, two launches identical."""
     w_k, s_k = wn.warp_ncc_sums_cuda(img, ref, a, s, tile=tile)
+    w_2, n_k = wn.warp_ncc(img, ref, a, s, tile=tile)
+    w_3, n_2 = wn.warp_ncc(img, ref, a, s, tile=tile)
     w_p, s_p = wn.warp_ncc_sums_reference(img, ref, a, s, tile=tile)
     torch.cuda.synchronize()
     torch.testing.assert_close(w_k, w_p, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(wn.fold(s_k), wn.fold(s_p), rtol=0, atol=1e-5)
+    torch.testing.assert_close(n_k, wn.fold(s_p), rtol=0, atol=1e-5)
     assert torch.equal(s_k[:, 5], torch.full_like(s_k[:, 5], tile * tile))
     assert not bool(s_k[:, 6:].any())
+    assert torch.equal(w_k, w_2) and torch.equal(w_2, w_3)
+    assert torch.equal(n_k, n_2)
+
+
+def _frames(h, w, device, seeds=(0, 1)):
+    """Lattice images cropped to (h, w)."""
+    size = max(h, w)
+    return [lattice_image(size, seed=k, device=device)[:h, :w].contiguous()
+            for k in seeds]
+
+
+@pytest.mark.parametrize("shape", [(96, 1920), (1920, 64), (64, 1952)])
+@pytest.mark.parametrize("tile", [16, 32])
+@pytest.mark.parametrize("ang,shift", CASES)
+def test_warp_ncc_kernel_non_square(cuda, shape, tile, ang, shift):
+    """H != W, and a width (1952 = 61 x 32) that leaves the last patch of a
+    tile row part full."""
+    h, w = shape
+    if abs(shift[0]) < 1:
+        shift = (shift[0] * h, shift[1] * w)
+    img, ref = _frames(h, w, cuda)
+    _check_warp_ncc(img, ref, torch.tensor(ang, device=cuda),
+                    torch.tensor(shift, device=cuda), tile)
+
+
+@pytest.mark.parametrize("tile", [16, 32])
+def test_warp_ncc_kernel_on_frames_of_a_stack(cuda, tile):
+    """Frames taken as ``frames[i]`` of an (N, H, W) stack, as the series
+    path hands them over."""
+    frames = torch.stack(_frames(192, 320, cuda, seeds=(0, 1, 2)))
+    _check_warp_ncc(frames[2], frames[1], torch.tensor(0.05, device=cuda),
+                    torch.tensor((2.0, -1.5), device=cuda), tile)
+
+
+def test_guess_check_launches_two_kernels(cuda):
+    """One guess check (fused_ncc_distance, then float()) puts the kernel
+    and its fold on the card and nothing else."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.registration import fused_ncc_distance
+
+    img, ref = _frames(256, 256, cuda)
+    d = {"angle": torch.tensor(0.03, device=cuda),
+         "shift": torch.tensor((1.0, -0.5), device=cuda)}
+    float(fused_ncc_distance(ref, img, d))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        dist = float(fused_ncc_distance(ref, img, d))
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and not e.name.startswith(("Memcpy", "Memset"))]
+    assert len(names) == 2, names
+    _, ncc = wn.warp_ncc_reference(img, ref, d["angle"], d["shift"])
+    assert abs(dist - (1.0 - float(ncc))) <= 1e-5
 
 
 def test_kernel_counts_each_launch(cuda):
@@ -95,6 +159,8 @@ def test_kernel_is_deterministic(cuda):
     a = wn.warp_ncc_sums_cuda(img, ref, 0.05, (1.0, 2.0))
     b = wn.warp_ncc_sums_cuda(img, ref, 0.05, (1.0, 2.0))
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert torch.equal(wn.warp_ncc(img, ref, 0.05, (1.0, 2.0))[1],
+                       wn.warp_ncc(img, ref, 0.05, (1.0, 2.0))[1])
 
 
 def test_kernel_wrapper_checks(cuda):
@@ -105,6 +171,14 @@ def test_kernel_wrapper_checks(cuda):
         wn.warp_ncc(x.t(), x, 0.0, (0.0, 0.0))
     with pytest.raises(ValueError):
         wn.warp_ncc(x, x, 0.0, (0.0, 0.0), tile=8)
+    # The angle and shift are read in place: f32, contiguous, on the card.
+    with pytest.raises(TypeError, match="shift"):
+        wn.warp_ncc(x, x, 0.0, torch.zeros(2, dtype=torch.float64,
+                                           device=cuda))
+    with pytest.raises(ValueError, match="shift"):
+        wn.warp_ncc(x, x, 0.0, torch.zeros((2, 2), device=cuda)[:, 0])
+    with pytest.raises(ValueError, match="angle"):
+        wn.warp_ncc(x, x, torch.zeros(()), (0.0, 0.0))
 
 
 def test_register_series_on_card_goes_through_kernel(cuda):

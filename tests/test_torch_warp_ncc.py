@@ -56,6 +56,59 @@ def test_heavy_clamp_matches_pallas(images, tile):
     np.testing.assert_allclose(float(ncc_t), float(ncc_j), atol=1e-5)
 
 
+@pytest.mark.parametrize("shape", [(64, 96), (96, 64)])
+@pytest.mark.parametrize("tile", [16, 32])
+def test_plain_matches_pallas_interpret_non_square(shape, tile):
+    """H != W: the plain version against the Pallas kernel on seeded
+    numpy frames, with the reference test's tolerances."""
+    rng = np.random.default_rng(7)
+    img = rng.random(shape, dtype=np.float32)
+    ref_img = (0.6 * img + 0.4 * rng.random(shape, dtype=np.float32)
+               ).astype(np.float32)
+    for ang, shift in [(0.07, (1.5, 0.7)), (-0.1, (-4.0, 2.5))]:
+        w_j, ncc_j = warp_ncc_pallas(img, ref_img, ang, shift, tile=tile,
+                                     interpret=True)
+        w_t, ncc_t = wn.warp_ncc_reference(
+            torch.from_numpy(img), torch.from_numpy(ref_img),
+            torch.tensor(ang), torch.tensor(shift), tile=tile,
+        )
+        np.testing.assert_allclose(w_t.numpy(), np.asarray(w_j), rtol=1e-4,
+                                   atol=1e-4)
+        np.testing.assert_allclose(float(ncc_t), float(ncc_j), atol=1e-5)
+
+
+def test_cpu_distance_is_one_minus_plain_ncc(images):
+    """``ncc_distance`` (the guess check's entry) on CPU tensors: the plain
+    version's 1 - NCC, with no launch."""
+    img, ref_img = (torch.from_numpy(x) for x in images)
+    before = launch_counts().get("warp_ncc", 0)
+    d = wn.ncc_distance(img, ref_img, torch.tensor(0.07),
+                        torch.tensor((1.5, 0.7)), tile=16)
+    _, ncc = wn.warp_ncc_reference(img, ref_img, 0.07, (1.5, 0.7), tile=16)
+    assert d.shape == () and torch.equal(d, 1.0 - ncc)
+    assert launch_counts().get("warp_ncc", 0) == before
+
+
+def test_param_checks():
+    """What the kernel reads in place of the angle and the shift: f32,
+    contiguous, the right count, on the images' device; numbers are
+    copied."""
+    cpu = torch.device("cpu")
+    shift = torch.tensor((1.0, 2.0))
+    assert wn._param(shift, 2, "shift", cpu) is shift
+    got = wn._param((1.0, 2.0), 2, "shift", cpu)
+    assert got.dtype == torch.float32 and torch.equal(got, shift)
+    assert wn._param(0.5, 1, "angle", cpu).shape == ()
+    with pytest.raises(TypeError, match="float64"):
+        wn._param(shift.double(), 2, "shift", cpu)
+    with pytest.raises(ValueError, match="contiguous"):
+        wn._param(torch.zeros((2, 2))[:, 0], 2, "shift", cpu)
+    with pytest.raises(ValueError, match="contiguous"):
+        wn._param((1.0, 2.0, 3.0), 2, "shift", cpu)
+    with pytest.raises(ValueError, match="is on"):
+        wn._param(shift, 2, "shift", torch.device("meta"))
+
+
 @pytest.mark.parametrize("tile", [16, 32])
 def test_sums_layout(images, tile):
     """(n_tiles, 8) row-major tile order: Σa, Σb, Σa², Σb², Σab, area, 0, 0."""

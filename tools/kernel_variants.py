@@ -7,14 +7,22 @@ Run from the repository root on a machine with a CUDA card::
 For each value it copies ``src/repro_torch/kernels/csrc`` into
 ``build/variants/<kernel>-<name>-<value>/``, sets the line
 ``constexpr int <name> = ...;`` of ``<kernel>.cu`` to the value, builds the
-library with the port's nvcc flags, holds its output against the plain
-version at the main path's shape, and times it by CUDA-graph replay (the
-card's own time), the variants in turn and then in reverse order.  It
-prints one line per variant, and the card's name and power limit.
+library with the port's nvcc flags (printing ptxas's register lines),
+holds its output against the plain version at the main path's shape
+(except an ablation's 0, wrong by design), and times it by CUDA-graph
+replay (the card's own time), the variants in turn and then in reverse
+order.  It prints one line per variant, and the card's name and power
+limit.
 
-Kernels: ``flash_attention`` (bf16, BH 128, L 512, d 112, causal: the
-serving path's prefill), ``lookback_scan`` (add over 2^24 x 1 floats in
-4096 tiles: the decoupled backend's scan), ``fused_round`` (the
+Kernels: ``warp_ncc`` (1920x1920 f32, tile 32, angle 0.07, shift (1.5,
+0.7): the series path's guess check; its constants are the patch width
+``kPatchCols``, the rows a thread has in flight ``kUnroll``, the register
+cap ``kMinBlocks``, and the ablation switches ``kGather``, ``kStore`` and
+``kReduce``, whose 0 drops the template gathers, the warped store or the
+block reduction, e.g. ``warp_ncc kGather 1 0``), ``flash_attention``
+(bf16, BH 128, L 512, d 112, causal: the serving path's prefill),
+``lookback_scan`` (add over 2^24 x 1 floats in 4096 tiles: the decoupled
+backend's scan), ``fused_round`` (the
 ``fused_plan`` kernel of ``fused_round.cu``: a Ladner-Fischer plan over
 2^16 x 1 floats in one launch, as the pallas backend's rounds mode runs
 it) and ``tile_apply`` (add over 2^24 x 1 floats in 16 tiles, e.g.
@@ -49,7 +57,8 @@ from repro_torch.kernels import _cuda  # noqa: E402
 
 
 # Each kernel's source (csrc/<source>.cu) and its C launch entry.
-SOURCES = {"flash_attention": ("flash_attention", "flash_attention_launch"),
+SOURCES = {"warp_ncc": ("warp_ncc", "warp_ncc_launch"),
+           "flash_attention": ("flash_attention", "flash_attention_launch"),
            "lookback_scan": ("lookback_scan", "lookback_scan_launch"),
            "fused_round": ("fused_round", "fused_plan_launch"),
            "tile_apply": ("tile_scan", "tile_apply_launch"),
@@ -79,9 +88,54 @@ def _build(kernel: str, name: str, value: int):
         raise SystemExit(f"no 'constexpr int {name}' in {source}.cu or "
                          "the headers")
     lib = os.path.join(out_dir, "lib.so")
-    subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", lib, src_path],
-                   check=True, capture_output=True, text=True)
+    proc = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", lib,
+                           src_path], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise SystemExit(f"nvcc failed for {name}={value}:\n{proc.stdout}"
+                         f"{proc.stderr}")
+    for line in (proc.stdout + proc.stderr).splitlines():
+        if "registers" in line or ("spill" in line
+                                   and " 0 bytes spill stores" not in line):
+            print(f"{kernel} {name}={value} ptxas: {line.strip()}")
     return getattr(ctypes.CDLL(lib), entry)
+
+
+def _warp_ncc(device, pairs: int = 1):
+    """One launch on each of ``pairs`` distinct (template, reference) pairs;
+    the time printed is a launch's.  Four pairs (177 MB with the warped
+    images) pass through the 50 MB L2, so each launch finds its frames cold,
+    as a guess check of a series does."""
+    from repro_torch.data.images import lattice_image
+    from repro_torch.kernels import warp_ncc as wn
+
+    size = chip_smoke.SIZE
+    frames = [lattice_image(size, seed=k, device=device)
+              for k in range(pairs + 1)]
+    angle = torch.tensor(0.07, device=device)
+    shift = torch.tensor((1.5, 0.7), device=device)
+    want_w, want_s = wn.warp_ncc_sums_reference(frames[0], frames[1], angle,
+                                                shift, tile=32)
+    outs = [(torch.empty_like(frames[0]),
+             torch.empty(((size // 32) ** 2, 8), device=device))
+            for _ in range(pairs)]
+
+    def run(fn):
+        for k, (warped, sums) in enumerate(outs):
+            err = fn(angle.data_ptr(), shift.data_ptr(),
+                     frames[k].data_ptr(), frames[k + 1].data_ptr(),
+                     warped.data_ptr(), sums.data_ptr(), None, size, size,
+                     32, torch.cuda.current_stream(device).cuda_stream)
+            assert err == 0, err
+        return outs[0]
+
+    def check(out):
+        chip_smoke._close_to(out[0], want_w, chip_smoke.WARP_RTOL,
+                             chip_smoke.WARP_ATOL, "variant warped")
+        dn = float((wn.fold(out[1]) - wn.fold(want_s)).abs())
+        assert dn <= chip_smoke.NCC_ATOL, dn
+
+    argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    return run, check, argtypes, pairs
 
 
 def _flash(device):
@@ -249,7 +303,11 @@ def _chunk_apply(device):
     return run, check, argtypes
 
 
-KERNELS = {"flash_attention": _flash, "lookback_scan": _lookback,
+# Switches whose 0 drops part of a kernel's work: that variant's output is
+# wrong by design and is not checked.
+ABLATIONS = {"kGather", "kStore", "kReduce"}
+
+KERNELS = {"warp_ncc": _warp_ncc, "flash_attention": _flash, "lookback_scan": _lookback,
            "fused_round": _fused_plan, "tile_apply": _tile_apply,
            "chunk_local": _chunk_local, "chunk_apply": _chunk_apply}
 
@@ -262,6 +320,9 @@ def main() -> int:
     ap.add_argument("values", type=int, nargs="+")
     ap.add_argument("--n", type=int, default=None,
                     help="fused_round: the plan's rows (default ROUNDS_N)")
+    ap.add_argument("--pairs", type=int, default=1,
+                    help="warp_ncc: distinct frame pairs a replay runs one "
+                         "launch on each (4: cold frames; default 1)")
     ap.add_argument("--d", type=int, default=1,
                     help="fused_round: the row width (default 1)")
     args = ap.parse_args()
@@ -270,12 +331,16 @@ def main() -> int:
         return 2
     device = torch.device("cuda", 0)
     calls = {}
+    per = 1   # launches a replay (warp_ncc: one a frame pair)
     for value in args.values:
         if args.kernel == "fused_round" and args.name == "C":
             run, check, argtypes = _fused_plan(device, value, args.n, args.d)
             fn = getattr(_cuda.load("fused_round"), SOURCES["fused_round"][1])
         elif args.kernel == "fused_round":
             run, check, argtypes = _fused_plan(device, None, args.n, args.d)
+            fn = _build(args.kernel, args.name, value)
+        elif args.kernel == "warp_ncc":
+            run, check, argtypes, per = _warp_ncc(device, args.pairs)
             fn = _build(args.kernel, args.name, value)
         else:
             run, check, argtypes = KERNELS[args.kernel](device)
@@ -284,12 +349,13 @@ def main() -> int:
         fn.argtypes = argtypes
         out = run(fn)
         torch.cuda.synchronize()
-        check(out)
+        if not (args.name in ABLATIONS and value == 0):
+            check(out)
         calls[value] = (lambda run=run, fn=fn: run(fn))
     times = {value: [] for value in calls}
     for order in (list(calls), list(reversed(list(calls)))):
         for value in order:
-            times[value].append(chip_smoke._graph_ms(calls[value]))
+            times[value].append(chip_smoke._graph_ms(calls[value]) / per)
     for value, ms in times.items():
         print(f"{args.kernel} {args.name}={value}: graph ms {ms}", flush=True)
     print(chip_smoke._smi(), flush=True)
