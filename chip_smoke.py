@@ -27,6 +27,21 @@ kernels' launch counts zeroed just before it and read just after:
   large for a cluster: one ``fused_round`` launch a non-empty round), and
   tiles mode at 2^24 (add over 16 tiles, max over 4096; one
   ``tile_local_scan`` and one ``tile_apply`` launch);
+* ``serving``: a ``repro_torch.serving.RegistrationFrontend`` (round-robin,
+  one dispatcher) whose sessions take the default device, with three
+  tenants of 1920x1920 frames (an interactive refining one, a composing
+  one on ``decoupled``, a second refining one) fed by
+  ``loadgen.run_open_loop`` on a seeded Poisson schedule; each tenant's
+  shifts are held against ``register_series`` of the same chunks
+  (``warp_ncc`` and ``lookback_scan``);
+* ``series_restore``: a session checkpointed after 17 of 33 frames in a
+  cold subprocess opened with the compile cache directory, restored in a
+  second one and extended, held to the uninterrupted session — refining,
+  then composing;
+* ``simulate``: ``engine.scan(backend="simulate")`` on 4,096 rigid
+  deformations on the card against ``vector``, the backend with the
+  paper's registration-like costs, and the host simulator's static and
+  stealing makespans at 1,020 and 6,144 cores;
 * ``lm_serve``: ``repro_torch.launch.serve.Server`` serving Zamba2-7B at full
   width and depth (81 layers, bf16, seeded random weights on the card) with
   the kernel backends passed in through ``acfg``: 4 requests (three 512-token
@@ -47,13 +62,14 @@ chunk_local and chunk_apply, beside their previous designs: times, the
 library call's, the bound, the HGMMA count of flash_attention's and
 chunk_scan's SASS and lookback_scan's longest walk),
 ``series``, ``series_hier``, ``series_compose``,
-``scan_engine``, ``lm_serve``, ``lm_check``, ``kernels`` (JSON), the card's
+``scan_engine``, ``serving``, ``series_restore``, ``simulate``,
+``lm_serve``, ``lm_check``, ``kernels`` (JSON), the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``.  Any
 failed phase raises and the script exits non-zero; without a CUDA device it
 exits 2 and prints no result.
 
-``--cpu-rehearsal`` runs the series, compose, engine and LM phases on the CPU
-at small sizes (the LM phases on Zamba2's smoke config) with the kernels'
+``--cpu-rehearsal`` runs the series, compose, engine, serving, restore,
+simulate and LM phases on the CPU at small sizes (the LM phases on Zamba2's smoke config) with the kernels'
 plain versions, to rehearse the script's flow without a card; it skips the
 kernel phases and exits 3 without a result line.
 """
@@ -940,6 +956,395 @@ def run_series_compose(device, n_frames: int, size: int) -> dict:
     return out
 
 
+# ------------------------------------------------------------ serving path
+
+#: The front end's tenants: (name, frames, refine, frames a feed,
+#: interactive).  The refining tenants reach warp_ncc through the guess
+#: check; the composing one reaches lookback_scan through ``decoupled``.
+SERVING_TENANTS = (("scope", 33, True, 8, True),
+                   ("batch_a", 33, False, 16, False),
+                   ("batch_b", 17, True, 8, False))
+SERVING_RATE_HZ = 4.0        # offered requests a second (Poisson, open loop)
+SERVING_DRAIN_S = 900.0      # every admitted ticket completes inside this
+COMPOSE_TOL = 1e-6           # tests/test_serving.py:288-291 (rtol and atol)
+REFINE_ATOL = 1e-5           # px: the port's streamed-vs-one-shot bound
+
+
+def _series_cfg(size: int, refine: bool, name: str):
+    """A session config at ``size`` px.  The refining sessions pin a static
+    two-level decomposition and the composing ones the decoupled backend,
+    so that the same chunks associate the same way in any process and
+    under any pool load: the comparisons below then hold the front end and
+    a restore to the same arithmetic as a one-process run."""
+    import repro_torch
+    from repro_torch.core.registration import RegistrationConfig
+
+    reg = RegistrationConfig(lr_angle=5e-4 * (96 / size) ** 2)
+    if refine:
+        return repro_torch.RegisterSeriesConfig(
+            registration=reg, skip_tol=SKIP_TOL, backend="hierarchical",
+            num_segments=2, num_threads=2, stealing=False, cross_steal=False,
+            telemetry_name=name)
+    return repro_torch.RegisterSeriesConfig(
+        registration=reg, refine=False, backend="decoupled",
+        telemetry_name=name)
+
+
+def _rendered(seed: int, n_frames: int, size: int, device):
+    from repro_torch.data.images import stream_series
+
+    chunks, true = stream_series(seed, n_frames, chunk_size=16, size=size,
+                                 noise=NOISE, device=device)
+    return torch.cat(list(chunks), dim=0), true
+
+
+def _hold_shifts(got, want, true, refine: bool, what: str) -> dict:
+    """Hold a session's shifts to ``register_series`` of the same chunks:
+    rtol and atol COMPOSE_TOL without refinement, REFINE_ATOL px and the
+    ground truth with it."""
+    g, w = got.double(), want.double()
+    err = float((g - w).abs().max())
+    out = {"max_abs_err_px": err}
+    if refine:
+        truth = float((got - true["shift"]).abs().max())
+        out["max_shift_err_px"] = truth
+        if not err <= REFINE_ATOL:
+            raise AssertionError(f"{what}: {err} px from register_series "
+                                 f"(bound {REFINE_ATOL})")
+        if not truth < SHIFT_ERR_MAX:
+            raise AssertionError(f"{what}: shift error {truth} px >= "
+                                 f"{SHIFT_ERR_MAX}")
+    elif not bool(((g - w).abs() <= COMPOSE_TOL + COMPOSE_TOL * w.abs()).all()):
+        raise AssertionError(f"{what}: {err} from register_series "
+                             f"(rtol and atol {COMPOSE_TOL})")
+    return out
+
+
+def run_serving(device, size: int, tenants=SERVING_TENANTS) -> dict:
+    """Three tenants' series through a ``RegistrationFrontend``
+    (round-robin, one dispatcher) whose sessions take the default device,
+    fed by ``loadgen.run_open_loop`` on a seeded Poisson schedule; each
+    tenant's shifts are then held against ``register_series`` of the same
+    chunks."""
+    import repro_torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import (
+        FrontendConfig,
+        LatencyHistogram,
+        RegistrationFrontend,
+        poisson_arrivals,
+        run_open_loop,
+    )
+
+    # None on the card: a front end's sessions run there by default.
+    session_device = None if device.type == "cuda" else device
+    series = {}
+    for i, (name, n, refine, chunk, interactive) in enumerate(tenants):
+        frames, true = _rendered(30 + i, n, size, device)
+        series[name] = {
+            "frames": frames, "true": true, "refine": refine,
+            "interactive": interactive,
+            "chunks": [frames[lo:lo + chunk] for lo in range(0, n, chunk)],
+            "cfg": _series_cfg(size, refine, f"serving_{name}"),
+        }
+    depth = max(len(s["chunks"]) + 1 for s in series.values())
+    fe = RegistrationFrontend(FrontendConfig(
+        policy="round_robin", dispatch_workers=1, queue_depth=depth))
+    # Each tenant's requests in order, interleaved across tenants: its
+    # feeds, then its result.
+    requests, per_tenant = [], {}
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        for name, s in series.items():
+            fe.add_tenant(name, interactive=s["interactive"])
+            s["sid"] = fe.open_series(name, s["cfg"], device=session_device)
+            per_tenant[name] = []
+        for r in range(depth):
+            for name, s in series.items():
+                if r < len(s["chunks"]):
+                    requests.append((name, "feed", s["chunks"][r]))
+                elif r == len(s["chunks"]):
+                    requests.append((name, "result", None))
+        pending = iter(requests)
+
+        def submit():
+            name, kind, chunk = next(pending)
+            sid = series[name]["sid"]
+            t = (fe.feed(name, sid, chunk) if kind == "feed"
+                 else fe.result(name, sid))
+            per_tenant[name].append(t)
+            return t
+
+        arrivals = poisson_arrivals(SERVING_RATE_HZ, 1e6, seed=2026)
+        load = run_open_loop(submit, arrivals[:len(requests)],
+                             drain_timeout_s=SERVING_DRAIN_S)
+        results = {name: ts[-1].result(timeout=0)
+                   for name, ts in per_tenant.items()}
+        stats = fe.stats()["tenants"]
+    finally:
+        fe.close()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    if load.completed != len(requests) or load.rejected or load.errors:
+        raise AssertionError(
+            f"serving: {load.completed}/{len(requests)} completed, "
+            f"{load.rejected} rejected, {load.errors} errors")
+    out = {"size": size, "policy": "round_robin", "dispatch_workers": 1,
+           "requests": len(requests), "rate_hz": SERVING_RATE_HZ,
+           "wall_s": wall, "offered_hz": load.offered_hz,
+           "achieved_hz": load.achieved_hz,
+           "latency_p50_s": load.latency.percentile(50),
+           "latency_p99_s": load.latency.percentile(99),
+           "warp_ncc_launches": launches.get("warp_ncc", 0),
+           "lookback_scan_launches": launches.get("lookback_scan", 0),
+           "tenants": {}}
+    for name, s in series.items():
+        res, tickets = results[name], per_tenant[name]
+        hist = LatencyHistogram()
+        for t in tickets:
+            hist.record(t.latency_s)
+        alone = repro_torch.register_series(s["chunks"], s["cfg"],
+                                            device=device)
+        shift = res.deformations["shift"]
+        if shift.device.type != device.type or tuple(shift.shape) != (
+                s["frames"].shape[0], 2):
+            raise AssertionError(f"serving {name}: shift {tuple(shift.shape)} "
+                                 f"on {shift.device}")
+        out["tenants"][name] = {
+            "frames": int(s["frames"].shape[0]), "refine": s["refine"],
+            "interactive": s["interactive"], "requests": len(tickets),
+            "latency_p50_s": hist.percentile(50),
+            "latency_p99_s": hist.percentile(99),
+            "rejected": stats[name]["rejected"],
+            "feeds": [[f["n_elems"], f["backend"], f["skipped"], f["refined"]]
+                      for f in res.feeds],
+            "wall_s": max(t.t_done for t in tickets)
+            - min(t.t_arrival for t in tickets),
+            **_hold_shifts(shift, alone.deformations["shift"], s["true"],
+                           s["refine"], f"serving {name}"),
+        }
+    if device.type == "cuda":
+        for kernel in ("warp_ncc", "lookback_scan"):
+            if out[f"{kernel}_launches"] < 1:
+                raise AssertionError(f"serving never launched {kernel}")
+    return out
+
+
+# ------------------------------------------------------ checkpoint/restore
+
+#: A cold process's part of ``series_restore``: ``write`` opens a session
+#: with the checkpoint and compile cache directories from its start, feeds
+#: the frames and checkpoints; ``restore`` restores that snapshot and
+#: extends it.  Each prints one JSON line.
+_RESTORE_CHILD = r"""
+import json, pickle, sys, time
+import numpy as np
+import torch
+sys.path.insert(0, sys.argv[1])
+from repro_torch import service
+from repro_torch.kernels import _cuda, launch_counts, reset_launch_counts
+from repro_torch.runtime.compile_cache import get_compile_cache, get_plan_store
+
+mode, ckpt, cache, frames, device, cfg = sys.argv[2:8]
+frames = torch.from_numpy(np.load(frames))
+device = None if device == "cuda" else device
+reset_launch_counts()
+t0 = time.perf_counter()
+if mode == "write":
+    with open(cfg, "rb") as f:
+        cfg = pickle.load(f)
+    s = service.open_series(cfg, checkpoint_dir=ckpt, compile_cache_dir=cache,
+                            device=device)
+    s.feed(frames)
+    out = {"step": s.checkpoint(), "checkpoint_s": time.perf_counter() - t0}
+    s.close()
+else:
+    s = service.SeriesSession.restore(ckpt, device=device,
+                                      compile_cache_dir=cache)
+    restore_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = s.extend(frames)
+    s.close()
+    out = {
+        "restore_s": restore_s, "extend_s": time.perf_counter() - t0,
+        "device": str(res.deformations["shift"].device),
+        "compile_cache": res.compile_cache,
+        "compile_stage_s": res.timings["compile"],
+        "feeds": [[f["n_elems"], f["backend"], f["skipped"], f["refined"]]
+                  for f in res.feeds],
+        "shift": res.deformations["shift"].tolist(),
+    }
+store = get_plan_store()
+print(json.dumps({
+    **out,
+    "process_compile_cache": get_compile_cache().stats(),
+    "plan_store": {"loads": store.loads, "stores": store.stores},
+    # Libraries nvcc compiled in this process (none: they load from build/).
+    "nvcc_built": [n for n in ("warp_ncc", "lookback_scan")
+                   if _cuda.build_log(n)],
+    "launches": launch_counts(),
+}))
+"""
+
+
+def _restore_child(mode: str, tmp: str, frames, device, what: str) -> dict:
+    """Run ``_RESTORE_CHILD`` in a fresh interpreter on ``frames``."""
+    path = os.path.join(tmp, f"{mode}.npy")
+    np.save(path, frames.cpu().numpy())
+    proc = subprocess.run(
+        [sys.executable, "-c", _RESTORE_CHILD, os.path.join(ROOT, "src"),
+         mode, os.path.join(tmp, "ckpt"), os.path.join(tmp, "cache"), path,
+         device.type, os.path.join(tmp, "cfg.pkl")],
+        capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"{what}: the {mode} process failed:\n"
+                             f"{proc.stderr[-4000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    # Each cold process builds function A's launcher once, on its first
+    # feed (eager PyTorch has no executable to persist), and that build
+    # loads the kernel library from build/ without nvcc.
+    if got["process_compile_cache"]["misses"] != 1 or got["nvcc_built"]:
+        raise AssertionError(f"{what}: {mode} process compile cache "
+                             f"{got['process_compile_cache']}, nvcc built "
+                             f"{got['nvcc_built']}")
+    return got
+
+
+def run_series_restore(device, n_frames: int, size: int, cut: int) -> dict:
+    """Checkpoint a session after ``cut`` frames in one cold subprocess
+    (opened with the checkpoint and compile cache directories), restore it
+    in a second one and extend it with the rest, and hold the series to
+    the uninterrupted session with the same chunk boundaries — refining
+    (warp_ncc), then composing (lookback_scan through ``decoupled``).
+    The launch counts are the two subprocesses'."""
+    import pickle
+    import tempfile
+
+    from repro_torch import service
+
+    out = {"frames": n_frames, "size": size, "cut": cut}
+    for seed, refine in ((40, True), (41, False)):
+        frames, true = _rendered(seed, n_frames, size, device)
+        cfg = _series_cfg(size, refine, f"restore_{int(refine)}")
+        tag = "refine" if refine else "compose"
+        what = f"series_restore {tag}"
+        with service.open_series(cfg, device=device) as u:
+            u.feed(frames[:cut])
+            want = u.extend(frames[cut:])
+        with tempfile.TemporaryDirectory() as tmp:
+            with open(os.path.join(tmp, "cfg.pkl"), "wb") as f:
+                pickle.dump(cfg, f)
+            wrote = _restore_child("write", tmp, frames[:cut], device, what)
+            child = _restore_child("restore", tmp, frames[cut:], device, what)
+        got = torch.tensor(child.pop("shift"), dtype=torch.float32,
+                           device=device)
+        held = _hold_shifts(got, want.deformations["shift"], true, refine,
+                            what)
+        cc = child["compile_cache"]
+        if wrote["step"] != cut or cc["misses"] != 1:
+            raise AssertionError(f"{what}: step {wrote['step']}, restored "
+                                 f"compile cache {cc}")
+        if refine and child["plan_store"]["loads"] < 1:
+            raise AssertionError(f"{what}: no plan came from the store "
+                                 f"({child['plan_store']})")
+        if device.type == "cuda" and not child["device"].startswith("cuda"):
+            raise AssertionError(f"{what}: restored onto {child['device']}")
+        restored = child.pop("launches")
+        launches = {k: wrote["launches"].get(k, 0) + restored.get(k, 0)
+                    for k in ("warp_ncc", "lookback_scan")}
+        out[tag] = {"refine": refine,
+                    "feeds_uninterrupted": [[f["n_elems"], f["backend"]]
+                                            for f in want.feeds],
+                    "write": {k: wrote[k] for k in (
+                        "checkpoint_s", "process_compile_cache",
+                        "plan_store", "launches")},
+                    **child, "restored_launches": restored,
+                    "launches": launches, **held}
+    if device.type == "cuda":
+        for tag, kernel in (("refine", "warp_ncc"),
+                            ("compose", "lookback_scan")):
+            if out[tag]["restored_launches"].get(kernel, 0) < 1:
+                raise AssertionError(f"series_restore {tag}: the restored "
+                                     f"session never launched {kernel}")
+    return out
+
+
+# ---------------------------------------------------------- simulate path
+
+SIM_N = 4096                 # the paper's series length
+#: (cores, frames): the paper's 1,024-core run as ranks x 12 threads (85 x
+#: 12 = 1,020, as benchmarks/bench_strong_scaling.py), and 6,144 cores (512
+#: ranks x 12) at four frames a core.
+SIM_RUNS = ((1020, 4096), (6144, 24576))
+
+
+def run_simulate(device, n: int = SIM_N) -> dict:
+    """``engine.scan(backend="simulate")`` on ``n`` rigid deformations on
+    ``device`` against the ``vector`` backend, the backend itself with the
+    paper's registration-like costs, and the simulator's static and
+    stealing makespans at the paper's core counts (host numbers)."""
+    from repro_torch.core.deformation import compose_batched
+    from repro_torch.core.engine import backends, get_backend, get_plan, scan
+    from repro_torch.core.simulator import (
+        registration_like_costs,
+        simulate_distributed_scan,
+        theoretical_bound_scan,
+    )
+
+    d = _deformations(n, device, seed=50)
+    elems = [{"angle": d["angle"][i], "shift": d["shift"][i]}
+             for i in range(n)]
+    want = scan(compose_batched, d, backend="vector",
+                algorithm="ladner_fischer")
+    t0 = time.perf_counter()
+    got = scan(compose_batched, elems, backend="simulate",
+               algorithm="ladner_fischer")
+    scan_s = time.perf_counter() - t0
+    default_trace = backends.last_trace
+    if got[0]["shift"].device.type != device.type:
+        raise AssertionError(f"simulate ran on {got[0]['shift'].device}")
+    err = {k: _require_equal(torch.stack([g[k] for g in got]), want[k],
+                             f"simulate vs vector ({k})")
+           for k in ("angle", "shift")}
+    plan = get_plan("ladner_fischer", n)
+    costs = registration_like_costs(n)
+    ys, _ = get_backend("simulate")(compose_batched, plan, elems, costs=costs)
+    trace = backends.last_trace
+    _require_equal(torch.stack([y["shift"] for y in ys]), want["shift"],
+                   "simulate with costs vs vector")
+    if trace.work != plan.work() or default_trace.work != plan.work():
+        raise AssertionError(f"simulate: {trace.work} combines traced, the "
+                             f"plan has {plan.work()}")
+    out = {"n": n, "circuit": "ladner_fischer", "scan_s": scan_s,
+           "max_abs_err_vs_vector": err, "work": trace.work,
+           "rounds": plan.num_rounds(),
+           "makespan_unit_cost": default_trace.makespan,
+           "makespan_registration_costs_s": trace.makespan,
+           "serial_registration_costs_s": float(costs.sum()),
+           "host_simulator": {}}
+    for cores, frames in SIM_RUNS:
+        c = registration_like_costs(frames)
+        ranks = cores // 12
+        c = c[:frames - frames % ranks]
+        runs = {}
+        for mode, stealing in (("static", False), ("stealing", True)):
+            t0 = time.perf_counter()
+            r = simulate_distributed_scan(c, ranks=ranks, threads=12,
+                                          algorithm="ladner_fischer",
+                                          stealing=stealing)
+            runs[mode] = {"makespan_s": r.makespan,
+                          "speedup": float(c.sum()) / r.makespan,
+                          "host_s": time.perf_counter() - t0}
+        out["host_simulator"][str(cores)] = {
+            "ranks": ranks, "threads": 12, "frames": len(c), **runs,
+            "stealing_gain": runs["static"]["makespan_s"]
+            / runs["stealing"]["makespan_s"],
+            "bound_speedup": theoretical_bound_scan(len(c), cores),
+        }
+    return out
+
+
 def run_scan_engine(device, n: int, series_len: int, rounds_n: int) -> dict:
     """``repro_torch.core.engine.scan`` on ``device`` tensors, by dispatch
     and through the ``pallas`` backend's two modes (rounds at ``rounds_n``,
@@ -1771,9 +2176,9 @@ def _close_pool() -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run the series, engine and LM phases on the CPU at "
-                         "small sizes with the plain kernels; exits 3 with no "
-                         "result line")
+                    help="run the series, engine, serving, restore, simulate "
+                         "and LM phases on the CPU at small sizes with the "
+                         "plain kernels; exits 3 with no result line")
     ap.add_argument("--previous-csrc", default=None,
                     help="csrc directory of the kernels' previous designs "
                          "(e.g. from git archive of an earlier commit): "
@@ -1795,6 +2200,11 @@ def main() -> int:
             num_threads=2))
         _line("series_compose", run_series_compose(dev, 17, 64))
         _line("scan_engine", run_scan_engine(dev, 1 << 12, 256, 1 << 10))
+        _line("serving", run_serving(dev, 96, tenants=(
+            ("scope", 9, True, 4, True), ("batch_a", 9, False, 8, False),
+            ("batch_b", 5, True, 4, False))))
+        _line("series_restore", run_series_restore(dev, 9, 96, 5))
+        _line("simulate", run_simulate(dev, 256))
         _line("lm_serve", run_lm_serve(dev, smoke=True))
         _line("lm_check", run_lm_check(dev, smoke=True))
         _close_pool()
@@ -1860,6 +2270,11 @@ def main() -> int:
     _line("series_compose", compose)
     engine = run_scan_engine(dev, SCAN_N, SERIES_LEN, ROUNDS_N)
     _line("scan_engine", engine)
+    serving = run_serving(dev, SIZE)
+    _line("serving", serving)
+    restore = run_series_restore(dev, 33, SIZE, 17)
+    _line("series_restore", restore)
+    _line("simulate", run_simulate(dev))
     serve = run_lm_serve(dev)
     _line("lm_serve", serve)
     check = run_lm_check(dev)
@@ -1874,6 +2289,15 @@ def main() -> int:
     kl["launches_series_compose"] = compose["lookback_scan_launches"]
     kl["launches_scan_engine"] = engine_launches.get("lookback_scan", 0)
     kl["launches"] = kl["launches_series_compose"] + kl["launches_scan_engine"]
+    for entry in (k, kl):
+        entry["launches_serving"] = serving[f"{entry['name']}_launches"]
+        entry["launches_series_restore"] = sum(
+            restore[tag]["launches"][entry["name"]]
+            for tag in ("refine", "compose"))
+        for path in ("serving", "series_restore"):
+            if not entry[f"launches_{path}"] >= 1:
+                raise AssertionError(f"{entry['name']} was never launched "
+                                     f"on the {path} path")
     for kt in (kt_local, kt_apply, kf, kp):
         kt["launches"] = kt["launches_scan_engine"] = engine_launches.get(
             kt["name"], 0)

@@ -12,6 +12,8 @@ zeroing), else None.  Registered backends:
              phase over block partials (paper §4.1)
   worksteal  threaded reduce-then-scan with Algorithm-1 stealing; the plan
              drives the phase-2 scan over thread partials (paper §4.3)
+  simulate   per-element execution that additionally tracks deterministic
+             virtual time per wire (the discrete-event model of simulator.py)
   hierarchical  two-level reduce-then-scan (``engine/hierarchical.py``)
   decoupled  single-pass decoupled-lookback scan
              (``engine/decoupled_backend.py``)
@@ -21,13 +23,15 @@ zeroing), else None.  Registered backends:
 
 Not ported yet, registered as stubs that raise ``NotImplementedError``
 naming their ``ROADMAP.md`` item, so that a dispatch to one is loud:
-``simulate``, ``collective`` and ``sharded``.
+``collective`` and ``sharded``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .._tree import tensor_leaves, tree_map
@@ -190,12 +194,75 @@ def exec_worksteal(
 
 
 # ---------------------------------------------------------------------------
+# simulate backend — element execution + deterministic virtual time
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class SimTrace:
+    """Virtual-time trace of one simulated plan execution."""
+
+    makespan: float
+    work: int
+    ready: np.ndarray  # per-wire completion time
+
+
+#: Trace of the most recent ``simulate`` backend execution (inspectable).
+last_trace: Optional[SimTrace] = None
+
+
+def exec_simulate(
+    op: Op,
+    plan: ExecutionPlan,
+    xs: Sequence[Any],
+    *,
+    op_cost: float = 1.0,
+    costs: Optional[Sequence[float]] = None,
+    latency: float = 0.0,
+    **_,
+) -> Tuple[list, Any]:
+    """Execute the plan per-element while tracking virtual time per wire.
+
+    ``costs``: optional per-*combine-output-wire* operator cost (defaults to
+    the scalar ``op_cost``); ``latency``: per-message transfer time for a
+    combine/move whose source is another wire.  The full distributed model
+    (noise, multicast factors, hierarchy) lives in ``core/simulator.py`` —
+    this backend is its single-circuit kernel, useful to compare circuit
+    makespans while also producing real values.
+    """
+    global last_trace
+    y: List[Any] = list(xs)
+    ready = np.zeros(plan.n, dtype=np.float64)
+    total = None
+    work = 0
+    for rnd in plan.rounds:
+        if rnd.capture_total is not None:
+            total = y[rnd.capture_total]
+        if not rnd.num_combines and not rnd.num_moves:
+            continue
+        reads = list(y)
+        t_reads = ready.copy()
+        for a, b, out, _fan, cs in rnd.combines:
+            y[out] = op(reads[a], reads[b])
+            c = float(costs[out]) if costs is not None else float(op_cost)
+            t_a = t_reads[a] + (latency if cs == a else 0.0)
+            t_b = t_reads[b] + (latency if cs == b else 0.0)
+            ready[out] = max(t_a, t_b) + c
+            work += 1
+        for src, out, _fan in rnd.moves:
+            y[out] = reads[src]
+            ready[out] = t_reads[src] + latency
+    last_trace = SimTrace(makespan=float(ready.max(initial=0.0)), work=work,
+                          ready=ready)
+    return y, total
+
+
+# ---------------------------------------------------------------------------
 # backends of later slices
 # ---------------------------------------------------------------------------
 
 #: Backend -> the ``ROADMAP.md`` item (Queue 1) that ports it.
 UNPORTED = {
-    "simulate": "Queue 1 item 1 (simulator)",
     "collective": "Queue 1 item 6 (distributed / sharded execution)",
     "sharded": "Queue 1 item 6 (distributed / sharded execution)",
 }
@@ -216,5 +283,6 @@ register_backend("vector", exec_vector)
 register_backend("element", exec_element)
 register_backend("blocked", exec_blocked)
 register_backend("worksteal", exec_worksteal)
+register_backend("simulate", exec_simulate)
 for _name, _item in UNPORTED.items():
     register_backend(_name, not_ported(f"the {_name!r} scan backend", _item))

@@ -36,6 +36,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from ...runtime.compile_cache import get_plan_store
 from ..circuits import Circuit, get_circuit
 
 
@@ -297,10 +298,18 @@ def get_plan(
     # check (cheap tuple comparison) and lowered fresh, uncached.
     if plan is not None and plan.circuit == circuit:
         return plan
-    # The reference consults its persistent PlanStore here
-    # (runtime/compile_cache.py); that module is not ported yet, so an LRU
-    # miss always lowers afresh.
+    # LRU miss: a previous process may have lowered this schedule already —
+    # the persistent plan store (when configured via
+    # runtime.compile_cache.set_cache_dir) skips the symbolic trace.
+    store = get_plan_store()
+    if plan is None and store is not None:
+        stored = store.load(key)
+        if stored is not None and stored.circuit == circuit:
+            plan_cache.put(key, stored)
+            return stored
     fresh = lower(circuit, mask=mask)
     if plan is None:
         plan_cache.put(key, fresh)
+        if store is not None:
+            store.store(key, fresh)
     return fresh

@@ -29,15 +29,29 @@ pair's result independent of the sub-batch it runs in.
 frame of the previous chunk and the frames of the chunk being scanned, so
 after each feed the session evicts everything else (:class:`_FrameStore`).
 
-Not ported yet (``ROADMAP.md`` Queue 1 item 3): ``checkpoint``/``restore``
-and the persistent compile cache (``runtime/compile_cache.py``).  The
-``compile`` timing stage holds the one-time kernel build, and the
-compile-cache counters stay 0.
+**Compile cache.**  Function A's batched launcher comes from the
+process-wide :class:`~repro_torch.runtime.compile_cache.CompileCache`,
+keyed by (chunk length, frame shape, registration config, device): a miss
+builds the CUDA kernels the session's path launches (the ``compile``
+stage), a hit reuses them.  ``compile_cache_dir`` attaches the persistent
+plan store, so a fresh process skips lowering every plan an earlier run
+lowered.
+
+**Recovery.**  ``checkpoint()`` snapshots the scan state (cumulative
+deformations, boundary frames, per-pair cost history, telemetry prime)
+through :class:`~repro_torch.checkpoint.checkpointer.Checkpointer`, in the
+reference's format; ``SeriesSession.restore`` rebuilds a mid-series session
+from the latest snapshot on its device and continues feeding.  Eager
+PyTorch has no compiled executable to persist for function A, so a restored
+process's first feed takes the launcher's one miss; what persists are the
+``nvcc`` libraries under ``build/`` (the miss loads them, it does not
+compile) and, with ``compile_cache_dir``, the lowered plans.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import threading
 import time
@@ -47,6 +61,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import DeviceLike, device_count, resolve_device
+from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.core._tree import tree_index, tree_stack
 from repro_torch.core.deformation import (
     Deformation,
@@ -61,7 +76,6 @@ from repro_torch.core.engine import (
     release_telemetry,
     scan as engine_scan,
 )
-from repro_torch.core.engine.backends import not_ported
 from repro_torch.core.registration import (
     RegElement,
     RegistrationConfig,
@@ -70,12 +84,31 @@ from repro_torch.core.registration import (
     fused_default,
     register_pair,
 )
+from repro_torch.runtime.compile_cache import get_compile_cache, set_cache_dir
 from repro_torch.runtime.scheduler import get_default_pool
 
 #: Function A runs a chunk's pairs in sub-batches of at most this many.  At
 #: 1920x1920 f32 one pair's autograd graph holds a few hundred MB, so 8
 #: pairs stay far below the card's 80 GB.
 PAIR_SUB_BATCH = 8
+
+
+def _register_pairs(pair_fn, cfg: RegistrationConfig, refs: torch.Tensor,
+                    tmps: torch.Tensor):
+    """Function A on all pairs, in sub-batches of ``PAIR_SUB_BATCH``:
+    ``(deformations, iterations)`` batched over the pairs."""
+    n = int(refs.shape[0])
+    outs = [
+        pair_fn(refs[lo:lo + PAIR_SUB_BATCH], tmps[lo:lo + PAIR_SUB_BATCH],
+                None, cfg)
+        for lo in range(0, n, PAIR_SUB_BATCH)
+    ]
+    defs = {
+        k: torch.cat([o.deformation[k] for o in outs], dim=0)
+        for k in outs[0].deformation
+    }
+    iters = torch.cat([o.iterations for o in outs], dim=0)
+    return defs, iters
 
 
 @dataclasses.dataclass(frozen=True)
@@ -256,6 +289,14 @@ class _FrameStore:
         keep = set(keep)
         self._frames = {i: f for i, f in self._frames.items() if i in keep}
 
+    def restore(self, n: int, frames: Dict[int, torch.Tensor]) -> None:
+        self._n = n
+        self._frames = dict(frames)
+        if frames:
+            first = next(iter(frames.values()))
+            self._hw = tuple(first.shape)
+            self.device = first.device
+
 
 @dataclasses.dataclass
 class _ChunkSummary:
@@ -270,23 +311,40 @@ class _ChunkSummary:
     refined: int = 0         # operator applications that refined
 
 
+#: The reference's ``_ChunkSummary`` fields: a snapshot's ``summaries`` hold
+#: only these, so that the reference can restore it; the port's others go
+#: under ``feeds``.
+_REFERENCE_SUMMARY_FIELDS = ("first_elem", "n_elems", "seconds", "ops")
+
+
+def _unflatten_keys(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """Rebuild a nested dict from '/'-joined checkpoint leaf keys."""
+    out: Dict[str, Any] = {}
+    for key, value in flat.items():
+        node = out
+        parts = key.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = value
+    return out
 
 
 _session_ids = itertools.count()
 
-_NOT_PORTED_ITEM = "Queue 1 item 3 (compile cache, checkpoint/restore)"
-
 
 class SeriesSession:
-    """One resident series: feed chunks, read results, extend.
+    """One resident series: feed chunks, read results, extend, recover.
 
     **Thread-safety.**  A series is one ordered stream: concurrent
     ``feed``/``extend`` calls on the *same* session are serialized by an
-    internal lock.  Many sessions on the shared pool are safe and intended.
+    internal lock (submit in order from one thread, or route through
+    :class:`repro_torch.serving.RegistrationFrontend`, which guarantees
+    per-session FIFO).  Many sessions on the shared pool are safe and
+    intended.
 
-    **Blocking.**  ``feed``/``result``/``extend`` run their compute
-    synchronously on the calling thread (plus pool workers) and return only
-    when the device work is done.
+    **Blocking.**  ``feed``/``result``/``extend``/``checkpoint`` run their
+    compute synchronously on the calling thread (plus pool workers) and
+    return only when the device work is done.
 
     **Device.**  ``device=None`` runs on the CUDA device and raises when
     there is none; ``device="cpu"`` runs on the CPU.
@@ -301,11 +359,17 @@ class SeriesSession:
         *,
         pool=None,
         session_id: Optional[str] = None,
+        checkpoint_dir: Optional[str] = None,
+        compile_cache_dir: Optional[str] = None,
         device: DeviceLike = None,
     ):
         self.cfg = cfg if cfg is not None else RegisterSeriesConfig()
         self.device = resolve_device(device)
         self.id = session_id or f"series{next(_session_ids)}"
+        if compile_cache_dir is not None:
+            # Attaches the persistent plan store; the in-process callable
+            # cache works regardless.
+            set_cache_dir(compile_cache_dir)
         self.pool = pool if pool is not None else get_default_pool()
         self.telemetry = get_telemetry(
             self.cfg.telemetry_name, session=self.id
@@ -318,7 +382,7 @@ class SeriesSession:
             "ingest": 0.0, "preprocess": 0.0, "scan": 0.0, "compose": 0.0,
             "compile": 0.0,
         }
-        # The persistent compile cache is not ported: its counters stay 0.
+        # This session's view of the process-wide callable cache.
         self._compile: Dict[str, float] = {
             "hits": 0, "misses": 0, "compile_s": 0.0,
         }
@@ -333,6 +397,10 @@ class SeriesSession:
         self._pre_pairs = 0
         self._feed_lock = threading.Lock()
         self._closed = False
+        self._ckpt = (
+            Checkpointer(checkpoint_dir, async_save=False)
+            if checkpoint_dir is not None else None
+        )
 
     # ------------------------------------------------------------ queries
 
@@ -386,8 +454,12 @@ class SeriesSession:
             )
             tmps = chunk if prev_last is not None else chunk[1:]
             new_elems: List[RegElement] = []
+            compile_before = self._compile["compile_s"]
             if refs.shape[0]:
-                defs, iters = self._register_pairs(refs, tmps)
+                launch = self._pair_launcher(int(refs.shape[0]),
+                                             tuple(chunk.shape[1:]))
+                defs, iters = launch(refs, tmps)
+                self._sync()
                 first = self._store.n - 1 if self._store.n else 0
                 new_elems = [
                     RegElement(tree_index(defs, i), first + i, first + i + 1)
@@ -396,48 +468,51 @@ class SeriesSession:
                 self._pair_iters.extend(int(v) for v in iters.tolist())
             self._store.append_chunk(chunk)
             dt = time.perf_counter() - t0
+            # Build seconds are accounted to their own stage, out of
+            # "preprocess" and the telemetry prime derived from it.
+            dt_compile = self._compile["compile_s"] - compile_before
+            dt -= dt_compile
+            self._timings["compile"] += dt_compile
             self._timings["preprocess"] += dt
             if new_elems:
                 self._pre_pairs += len(new_elems)
                 self._pre_seconds += dt
-                self._build_kernels()
                 self._scan_suffix(new_elems)
             # O(1) residency: only frame 0 and the boundary frame can be
             # touched by future feeds.
             self._store.evict({0, self._store.n - 1})
         return self
 
-    def _register_pairs(self, refs: torch.Tensor, tmps: torch.Tensor):
-        """Function A on all pairs, in sub-batches of ``PAIR_SUB_BATCH``:
-        ``(deformations, iterations)`` batched over the pairs."""
-        cfg = self.cfg.registration
-        n = int(refs.shape[0])
-        outs = [
-            register_pair(refs[lo:lo + PAIR_SUB_BATCH],
-                          tmps[lo:lo + PAIR_SUB_BATCH], None, cfg)
-            for lo in range(0, n, PAIR_SUB_BATCH)
-        ]
-        defs = {
-            k: torch.cat([o.deformation[k] for o in outs], dim=0)
-            for k in outs[0].deformation
-        }
-        iters = torch.cat([o.iterations for o in outs], dim=0)
-        self._sync()
-        return defs, iters
+    def _pair_launcher(self, n_pairs: int, hw: tuple):
+        """Function A's batched launcher for ``n_pairs`` pairs of ``hw``
+        frames, from the process-wide compile cache.
 
-    def _build_kernels(self) -> None:
-        """Build the CUDA kernels this session's scan will launch (once per
-        process; on-disk builds are reused) and account the seconds to the
-        ``compile`` stage, before the scan's timer starts."""
+        A miss builds the CUDA kernels this session's scan will launch (the
+        guess check's ``warp_ncc``; once per process, on-disk builds are
+        reused), so the build lands in the ``compile`` stage and not in
+        the first scan.  The live module-level ``register_pair`` is part
+        of the key so a swapped implementation never reuses a stale
+        launcher."""
         cfg = self.cfg
-        if (self.device.type != "cuda" or not cfg.refine
-                or cfg.skip_tol is None
-                or not fused_default(self.device, self._store.shape[1:],
-                                     fused=cfg.fused_ncc)):
-            return
-        from repro_torch.kernels import warp_ncc
+        needs_ncc = (self.device.type == "cuda" and cfg.refine
+                     and cfg.skip_tol is not None
+                     and fused_default(self.device, hw, fused=cfg.fused_ncc))
+        pair_fn = register_pair
 
-        self._timings["compile"] += warp_ncc.ensure_built()
+        def build():
+            if needs_ncc:
+                from repro_torch.kernels import warp_ncc
+
+                warp_ncc.ensure_built()
+            return functools.partial(_register_pairs, pair_fn,
+                                     cfg.registration)
+
+        return get_compile_cache().get_compiled(
+            ("pair_batch", pair_fn, n_pairs, hw, "float32", cfg.registration,
+             str(self.device), needs_ncc),
+            build,
+            counters=self._compile,
+        )
 
     def _scan_suffix(self, new_elems: List[RegElement]) -> None:
         cfg = self.cfg
@@ -604,8 +679,139 @@ class SeriesSession:
 
     # ------------------------------------------------------------ recovery
 
-    checkpoint = not_ported("SeriesSession.checkpoint", _NOT_PORTED_ITEM)
-    restore = classmethod(not_ported("SeriesSession.restore", _NOT_PORTED_ITEM))
+    def checkpoint(self) -> int:
+        """Snapshot the scan state; returns the step (frames seen).
+
+        The snapshot holds the cumulative deformations, the two resident
+        boundary frames, the per-pair cost history and the telemetry
+        prime — everything ``restore`` needs to continue the series —
+        copied to the host, in the reference's format.
+        """
+        self._check_open()
+        if self._ckpt is None:
+            raise ValueError(
+                "session was opened without checkpoint_dir; pass one to "
+                "open_series(..., checkpoint_dir=...)"
+            )
+        if not self._elements:
+            raise ValueError("nothing to checkpoint: no elements scanned yet")
+        m = self._store.n
+        state = {
+            "cum": tree_stack([e.deformation for e in self._elements]),
+            "frame0": self._store[0],
+            "last_frame": self._store[m - 1],
+            "pair_iters": torch.tensor(self._pair_iters, dtype=torch.int32),
+        }
+        summaries = [dataclasses.asdict(s) for s in self._summaries]
+        meta = {
+            "session_id": self.id,
+            "n_frames": m,
+            "backend": self._backend_used,
+            "cfg": dataclasses.asdict(self.cfg),
+            "telemetry_name": self.cfg.telemetry_name,
+            "telemetry_ema_s": self.telemetry.summary()["ema_s"],
+            "timings": dict(self._timings),
+            "pre_seconds": self._pre_seconds,
+            "pre_pairs": self._pre_pairs,
+            "summaries": [
+                {k: s[k] for k in _REFERENCE_SUMMARY_FIELDS} for s in summaries
+            ],
+            "feeds": [
+                {k: v for k, v in s.items()
+                 if k not in _REFERENCE_SUMMARY_FIELDS}
+                for s in summaries
+            ],
+        }
+        self._ckpt.save(m, state, meta)
+        self._ckpt.wait()
+        return m
+
+    @classmethod
+    def restore(
+        cls,
+        checkpoint_dir: str,
+        cfg: Optional[RegisterSeriesConfig] = None,
+        *,
+        pool=None,
+        step: Optional[int] = None,
+        device: DeviceLike = None,
+        compile_cache_dir: Optional[str] = None,
+    ) -> "SeriesSession":
+        """Rebuild a mid-series session from its latest (or given) snapshot
+        on ``device`` (the card when None; it raises where there is none).
+
+        The restored session resumes exactly where the snapshot left off:
+        retained cumulative elements, boundary frames, cost history and a
+        re-primed telemetry EMA (per-call imbalance statistics restart
+        from scratch).  Snapshots of the reference package restore too.
+
+        ``cfg=None`` rebuilds the config the snapshot was taken under; an
+        explicit ``cfg`` must agree on the registration-affecting fields
+        (``registration``/``refine``) or restore refuses, since a
+        mixed-settings series is silent data corruption.
+        """
+        ckpt = Checkpointer(checkpoint_dir, async_save=False)
+        by_key, meta, _step = ckpt.restore_raw(step=step)
+        saved_cfg = meta.get("cfg")
+        if saved_cfg is not None:
+            stored = RegisterSeriesConfig(
+                registration=RegistrationConfig(**saved_cfg["registration"]),
+                **{k: v for k, v in saved_cfg.items() if k != "registration"},
+            )
+            if cfg is None:
+                cfg = stored
+            elif (cfg.registration, cfg.refine) != (
+                stored.registration, stored.refine,
+            ):
+                raise ValueError(
+                    "restore cfg disagrees with the snapshot's "
+                    "registration-affecting settings "
+                    f"(snapshot: registration={stored.registration}, "
+                    f"refine={stored.refine}); resume with cfg=None or "
+                    "matching settings"
+                )
+        self = cls(
+            cfg,
+            pool=pool,
+            session_id=meta["session_id"],
+            checkpoint_dir=checkpoint_dir,
+            compile_cache_dir=compile_cache_dir,
+            device=device,
+        )
+        dev = self.device
+
+        def on_device(a: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(np.array(a)).to(dev)
+
+        m = int(meta["n_frames"])
+        # Rebuild the deformation tree generically from the flattened
+        # checkpoint keys — the schema belongs to the Deformation type,
+        # not to this method (a variant with extra leaves must round-trip).
+        cum = _unflatten_keys({
+            k[len("cum/"):]: on_device(v)
+            for k, v in by_key.items() if k.startswith("cum/")
+        })
+        self._elements = [
+            RegElement(tree_index(cum, i), 0, i + 1) for i in range(m - 1)
+        ]
+        self._store.restore(m, {
+            0: on_device(by_key["frame0"]),
+            m - 1: on_device(by_key["last_frame"]),
+        })
+        self._pair_iters = [int(v) for v in by_key["pair_iters"]]
+        self._backend_used = meta.get("backend")
+        self._timings.update(meta.get("timings", {}))
+        self._pre_seconds = float(meta.get("pre_seconds", 0.0))
+        self._pre_pairs = int(meta.get("pre_pairs", 0))
+        feeds = meta.get("feeds") or [{}] * len(meta.get("summaries", []))
+        self._summaries = [
+            _ChunkSummary(**s, **f)
+            for s, f in zip(meta.get("summaries", []), feeds)
+        ]
+        ema = meta.get("telemetry_ema_s") or 0.0
+        if ema > 0:
+            self.telemetry.record(float(ema))
+        return self
 
     # ------------------------------------------------------------ lifetime
 
@@ -629,8 +835,20 @@ def open_series(
     *,
     pool=None,
     session_id: Optional[str] = None,
+    checkpoint_dir: Optional[str] = None,
+    compile_cache_dir: Optional[str] = None,
     device: DeviceLike = None,
 ) -> SeriesSession:
-    """Open a resident series session on the shared runtime (on the CUDA
-    device unless ``device`` says otherwise)."""
-    return SeriesSession(cfg, pool=pool, session_id=session_id, device=device)
+    """Open a resident series session on the shared runtime, on the CUDA
+    device unless ``device`` says otherwise.
+
+    ``pool``: the :class:`~repro_torch.runtime.scheduler.WorkerPool` to
+    execute on (process-wide shared pool by default).  ``checkpoint_dir``
+    enables ``session.checkpoint()`` / :meth:`SeriesSession.restore`.
+    ``compile_cache_dir`` attaches the persistent plan store there so
+    restarts warm-start (:mod:`repro_torch.runtime.compile_cache`).
+    """
+    return SeriesSession(
+        cfg, pool=pool, session_id=session_id, checkpoint_dir=checkpoint_dir,
+        compile_cache_dir=compile_cache_dir, device=device,
+    )

@@ -125,6 +125,14 @@ def test_element_backends_match_reference(backend, opts, n, seeded):
     _assert_prefixes(got, want)
 
 
+@pytest.mark.parametrize("n", [7, 16])
+def test_simulate_backend_matches_reference(n):
+    elems = _elements(n, seed=n)
+    want = ref_scan(rdef.compose, [_j(e) for e in elems], backend="simulate")
+    got = scan(tdef.compose, [_t(e) for e in elems], backend="simulate")
+    _assert_prefixes(got, want)
+
+
 def test_hierarchical_stats_recorded():
     elems = [_t(e) for e in _elements(12, 3)]
     scan(tdef.compose, elems, backend="hierarchical", num_segments=3,
@@ -200,9 +208,8 @@ def test_argument_checks_match_reference():
 def test_unported_backends_raise(name):
     elems = [_t(e) for e in _elements(4, 2)]
     stack = {k: torch.stack([e[k] for e in elems]) for k in ("angle", "shift")}
-    xs = elems if name in ("simulate",) else stack
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        scan(tdef.compose_batched, xs, backend=name, num_blocks=2)
+        scan(tdef.compose_batched, stack, backend=name, num_blocks=2)
 
 
 # ------------------------- hierarchical device phase 1 and array domain

@@ -2,9 +2,8 @@
 ported backend of ``repro_torch.core.engine`` equals the sequential
 left-fold oracle, at the reference test's sizes, circuits and tolerances.
 
-The reference's ``simulate`` and ``collective`` cases have no ported
-backend yet; their counterparts check that the stubs raise naming their
-``ROADMAP.md`` item."""
+The reference's ``collective`` case has no ported backend yet; its
+counterpart checks that the stub raises naming its ``ROADMAP.md`` item."""
 
 import numpy as np
 import pytest
@@ -95,6 +94,14 @@ def test_element_backends_match_oracle(alg, n):
     np.testing.assert_allclose(ys, _oracle(vals), rtol=1e-9)
 
 
+@pytest.mark.parametrize("alg", CIRCUITS)
+@pytest.mark.parametrize("n", SIZES)
+def test_simulate_backend_matches_oracle(alg, n):
+    vals = [float(i) * 0.5 for i in range(1, n + 1)]
+    ys = scan(lambda a, b: a + b, vals, backend="simulate", algorithm=alg)
+    np.testing.assert_allclose(ys, _oracle(vals), rtol=1e-9)
+
+
 @pytest.mark.parametrize("n", SIZES)
 def test_worksteal_matches_oracle(n):
     vals = [float(i) * 0.5 for i in range(1, n + 1)]
@@ -103,7 +110,7 @@ def test_worksteal_matches_oracle(n):
     np.testing.assert_allclose(ys, _oracle(vals), rtol=1e-9)
 
 
-@pytest.mark.parametrize("backend", ["simulate", "collective"])
+@pytest.mark.parametrize("backend", ["collective"])
 def test_unported_reference_backends_raise(backend):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         scan(lambda a, b: a + b, [1.0, 2.0, 3.0], backend=backend)
@@ -135,7 +142,7 @@ def test_vector_noncommutative_pytree(alg, n):
     np.testing.assert_allclose(yc.numpy(), rc, rtol=1e-4, atol=1e-6)
 
 
-@pytest.mark.parametrize("backend", ["element", "worksteal"])
+@pytest.mark.parametrize("backend", ["element", "worksteal", "simulate"])
 def test_element_noncommutative(backend):
     n = 33
     rng = np.random.default_rng(7)

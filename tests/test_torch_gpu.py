@@ -996,3 +996,93 @@ def test_zamba2_smoke_server_on_card_goes_through_the_kernels(cuda):
     counts = {kk: n for kk, n in launch_counts().items() if n}
     assert counts == {"chunk_local": 2, "chunk_apply": 2, "flash_attention": 1}
     assert stats["generated"] == 24 and all(len(r.output) == 8 for r in reqs)
+
+
+# ------------------------------------ serving, recovery, simulate on card
+
+
+def _static_cfg(refine):
+    """Refining: a static two-level decomposition with the guess check on;
+    composing: the decoupled backend.  Both associate the same chunks the
+    same way in every run, so a restored or served series can be held to
+    a one-process run."""
+    if refine:
+        return repro_torch.RegisterSeriesConfig(
+            skip_tol=0.02, backend="hierarchical", num_segments=2,
+            num_threads=2, stealing=False, cross_steal=False)
+    return repro_torch.RegisterSeriesConfig(refine=False, backend="decoupled")
+
+
+@pytest.mark.parametrize("refine", [True, False])
+def test_checkpoint_restore_on_card(cuda, tmp_path, refine):
+    """A session whose tensors live on the card checkpoints to the host and
+    restores onto the card (device=None); its extend launches the path's
+    kernel and matches the uninterrupted session."""
+    from repro_torch import service
+
+    frames, _ = make_series(13, 12, size=96, noise=0.15, device=cuda)
+    cfg = _static_cfg(refine)
+    with service.open_series(cfg) as u:
+        u.feed(frames[:7])
+        want = u.extend(frames[7:])
+    s = service.open_series(cfg, checkpoint_dir=str(tmp_path))
+    s.feed(frames[:7])
+    assert s.checkpoint() == 7
+    s.close()
+    r = service.SeriesSession.restore(str(tmp_path))
+    assert r.device.type == "cuda"
+    assert r._elements[0].deformation["shift"].device.type == "cuda"
+    assert r._store[0].device.type == "cuda" and r._store[6].device.type == "cuda"
+    reset_launch_counts()
+    got = r.extend(frames[7:])
+    r.close()
+    kernel = "warp_ncc" if refine else "lookback_scan"
+    assert launch_counts()[kernel] >= 1
+    assert got.deformations["shift"].device.type == "cuda"
+    torch.testing.assert_close(got.deformations["shift"],
+                               want.deformations["shift"], rtol=0,
+                               atol=1e-5 if refine else 1e-6)
+
+
+def test_restore_without_cuda_raises(cuda, tmp_path, monkeypatch):
+    from repro_torch import service
+
+    frames, _ = make_series(14, 4, size=64, noise=0.15, device=cuda)
+    s = service.open_series(_static_cfg(False), checkpoint_dir=str(tmp_path))
+    s.feed(frames)
+    s.checkpoint()
+    s.close()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        service.SeriesSession.restore(str(tmp_path))
+
+
+def test_frontend_session_on_card_goes_through_warp_ncc(cuda):
+    from repro_torch.serving import FrontendConfig, RegistrationFrontend
+
+    frames, true = make_series(15, 9, size=96, noise=0.15, device=cuda)
+    reset_launch_counts()
+    with RegistrationFrontend(FrontendConfig(dispatch_workers=1)) as fe:
+        fe.add_tenant("scope", interactive=True)
+        sid = fe.open_series("scope", _static_cfg(True))  # the card
+        fe.feed("scope", sid, frames[:5])
+        res = fe.extend("scope", sid, frames[5:]).result(timeout=120)
+    checks = sum(f["skipped"] + f["refined"] for f in res.feeds)
+    assert launch_counts()["warp_ncc"] == checks > 0
+    assert res.deformations["shift"].device.type == "cuda"
+    assert float((res.deformations["shift"] - true["shift"]).abs().max()) < 0.35
+
+
+def test_simulate_backend_on_card_tensors(cuda):
+    from repro_torch.core.engine import backends
+
+    d = _deformations(300, cuda, seed=4)
+    elems = [{"angle": d["angle"][i], "shift": d["shift"][i]}
+             for i in range(300)]
+    got = scan(compose_batched, elems, backend="simulate")
+    want = scan(compose_batched, d, backend="vector",
+                algorithm="ladner_fischer")
+    assert got[0]["shift"].device.type == "cuda"
+    assert torch.equal(torch.stack([g["shift"] for g in got]), want["shift"])
+    assert torch.equal(torch.stack([g["angle"] for g in got]), want["angle"])
+    assert backends.last_trace.work == get_plan("ladner_fischer", 300).work()

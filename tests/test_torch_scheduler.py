@@ -1,13 +1,18 @@
 """WorkerPool runtime in the port: the reference's scheduler tests, run
 against ``repro_torch.runtime.scheduler`` (the port's own copy of the
-JAX-free module) and the port's executors.  The thread-discipline lint
-test stays with the reference until ``analysis/lint.py`` is ported."""
+JAX-free module) and the port's executors, with the thread-discipline
+lint over the port's tree.
+
+Under ``REPRO_CHECK_INVARIANTS=1`` the module ends by asserting that the
+port's happens-before race tracker recorded no race (the counterpart of
+the reference's ``make sanitize``)."""
 
 import threading
 import time
 
 import pytest
 
+from repro_torch.analysis.sync import get_race_tracker, invariants_enabled
 from repro_torch.runtime.scheduler import (
     TransientPool,
     WorkerPool,
@@ -23,6 +28,19 @@ def _pool_teardown():
     pool.shutdown()
     pool.join(timeout=10)
     set_default_pool(None)
+    if invariants_enabled():
+        races = get_race_tracker().races()
+        assert races == [], "\n".join(str(r) for r in races)
+
+
+def test_work_stealing_hot_paths_spawn_no_threads():
+    """Acceptance gate: the thread-discipline lint pass (THR001 — no raw
+    thread/executor construction outside ``runtime/scheduler.py``) is
+    clean over the port's tree."""
+    from repro_torch.analysis.lint import run_lint
+
+    findings = [f for f in run_lint() if f.rule == "THR001"]
+    assert findings == [], "\n".join(str(f) for f in findings)
 
 
 def test_join_waits_for_workers_of_a_shut_down_pool():

@@ -71,7 +71,10 @@ def test_register_series_matches_reference(series8):
     assert got.backend == "hierarchical" and got.scan_stats is not None
     assert set(got.timings) == {"ingest", "preprocess", "scan", "compose", "compile"}
     assert got.op_telemetry["calls"] > 0
-    assert got.compile_cache == {"hits": 0, "misses": 0, "compile_s": 0.0}
+    # One feed: one lookup of function A's launcher in the compile cache.
+    cc = got.compile_cache
+    assert set(cc) == {"hits", "misses", "compile_s"}
+    assert cc["hits"] + cc["misses"] == 1
     # every refining application ran the guess check (skip_tol 1e-6 never skips)
     assert [f["skipped"] for f in got.feeds] == [0]
     assert got.feeds[0]["refined"] > 0
@@ -149,12 +152,14 @@ def test_session_extend_after_result(series8):
         s.feed(frames[:2])
 
 
-def test_checkpoint_restore_not_ported():
+def test_checkpoint_restore_not_ported(tmp_path):
+    """The error paths of checkpoint/restore (their round trips are in
+    test_torch_service.py): no checkpoint_dir, and no snapshot to read."""
     s = repro_torch.open_series(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="checkpoint_dir"):
         s.checkpoint()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        repro_torch.SeriesSession.restore("anywhere")
+    with pytest.raises(FileNotFoundError, match="no checkpoints"):
+        repro_torch.SeriesSession.restore(str(tmp_path), device="cpu")
     s.close()
 
 
@@ -213,14 +218,15 @@ def _chip_smoke(*args):
 
 
 def test_chip_smoke_cpu_rehearsal_runs_the_flow():
-    """The chip script's series, compose, engine and LM phases on the CPU
-    (plain kernels): it prints their lines, no result line, and exits 3."""
+    """The chip script's series, compose, engine, serving, restore,
+    simulate and LM phases on the CPU (plain kernels): it prints their
+    lines, no result line, and exits 3."""
     out = _chip_smoke("--cpu-rehearsal")
     assert out.returncode == 3, out.stderr
     lines = out.stdout.splitlines()
     assert [ln.split()[0] for ln in lines] == [
-        "series", "series_hier", "series_compose", "scan_engine", "lm_serve",
-        "lm_check"]
+        "series", "series_hier", "series_compose", "scan_engine", "serving",
+        "series_restore", "simulate", "lm_serve", "lm_check"]
     assert '"ok"' not in out.stdout
 
 

@@ -1,9 +1,11 @@
 """Series sessions in the port: the reference's session tests
 (tests/test_service.py) against ``repro_torch.service`` — incremental
 feed/extend against the one-shot pipeline, frame residency, telemetry
-isolation, prefetch depth and pool-aware dispatch.  Checkpoint/restore is
-not ported yet (test_torch_series.py checks that it raises)."""
+isolation, prefetch depth and pool-aware dispatch, checkpoint/restore —
+and snapshots that cross between the two packages both ways."""
 
+import json
+import sys
 import threading
 import time
 
@@ -37,6 +39,14 @@ def _pool_teardown():
     pool.shutdown()
     pool.join(timeout=10)
     scheduler.set_default_pool(None)
+    # The parity tests ran the reference's sessions on its own pool.
+    ref_scheduler = sys.modules.get("repro.runtime.scheduler")
+    if ref_scheduler is not None:
+        ref_pool = ref_scheduler.get_default_pool()
+        ref_pool.shutdown()
+        for t in list(ref_pool._threads):
+            t.join(timeout=10)
+        ref_scheduler.set_default_pool(None)
 
 
 def open_series(cfg=None, **kw):
@@ -219,6 +229,174 @@ def test_frame_store_evicted_access_raises_clearly():
     store[0], store[3]
     with pytest.raises(IndexError, match="evicted"):
         store[1]
+
+
+# ------------------------------------------------- checkpoint / restore
+
+
+def test_checkpoint_restore_resumes_exactly(tmp_path, fake_a):
+    """Kill-and-restore mid-series: the restored session's extend must
+    match the uninterrupted session (deterministic operator, same chunk
+    boundaries)."""
+    frames = _frames(20, 42)
+    cfg = repro_torch.RegisterSeriesConfig(refine=False)
+    with open_series(cfg) as uninterrupted:
+        uninterrupted.feed(frames[:12])
+        ref = uninterrupted.extend(frames[12:])
+
+    s = open_series(cfg, checkpoint_dir=str(tmp_path))
+    s.feed(frames[:12])
+    step = s.checkpoint()
+    assert step == 12
+    s.close()  # the "crash"
+
+    r = service.SeriesSession.restore(str(tmp_path), cfg, device="cpu")
+    assert r.n_frames == 12 and r.n_elements == 11
+    got = r.extend(frames[12:])
+    r.close()
+    np.testing.assert_allclose(
+        got.deformations["shift"].numpy(),
+        ref.deformations["shift"].numpy(),
+        atol=1e-7,
+    )
+    assert len(r.summaries) >= 2  # restored summary + the extend's
+
+
+def test_checkpoint_requires_dir_and_state(tmp_path):
+    s = open_series(repro_torch.RegisterSeriesConfig(refine=False))
+    with pytest.raises(ValueError, match="checkpoint_dir"):
+        s.checkpoint()
+    s.close()
+    s = open_series(repro_torch.RegisterSeriesConfig(refine=False),
+                    checkpoint_dir=str(tmp_path))
+    with pytest.raises(ValueError, match="nothing to checkpoint"):
+        s.checkpoint()
+    s.close()
+
+
+def test_restore_rebuilds_and_guards_config(tmp_path, fake_a):
+    """The snapshot carries the config: restore(cfg=None) resumes under
+    the settings the prefix was registered with, and an explicit cfg that
+    disagrees on registration-affecting fields is refused (a mixed-
+    settings series is silent corruption)."""
+    from repro_torch.core.registration import RegistrationConfig
+
+    cfg = repro_torch.RegisterSeriesConfig(
+        refine=False,
+        registration=RegistrationConfig(max_iters=50, tol=1e-5),
+    )
+    s = open_series(cfg, checkpoint_dir=str(tmp_path))
+    s.feed(_frames(8, 0))
+    s.checkpoint()
+    s.close()
+    r = service.SeriesSession.restore(str(tmp_path), device="cpu")
+    assert r.cfg.registration.max_iters == 50
+    assert r.cfg.registration.tol == 1e-5
+    assert r.cfg.refine is False
+    r.close()
+    with pytest.raises(ValueError, match="registration-affecting"):
+        service.SeriesSession.restore(
+            str(tmp_path), repro_torch.RegisterSeriesConfig(refine=True),
+            device="cpu",
+        )
+
+
+def test_restore_reprimes_telemetry(tmp_path):
+    """The snapshot carries the telemetry prime so a restored session
+    dispatches from the observed cost, not from scratch."""
+    from repro_torch.data.images import make_series
+
+    frames, _ = make_series(5, 8, size=64, noise=0.12, device="cpu")
+    cfg = repro_torch.RegisterSeriesConfig(telemetry_name="test_svc_ckpt")
+    s = open_series(cfg, checkpoint_dir=str(tmp_path))
+    s.feed(frames)
+    s.result()
+    assert s.telemetry.estimate() is not None
+    s.checkpoint()
+    s.close()
+    r = service.SeriesSession.restore(str(tmp_path), cfg, device="cpu")
+    assert r.telemetry.estimate() is not None and r.telemetry.estimate() > 0
+    assert [f["backend"] for f in r.result().feeds] == [
+        sm.backend for sm in s.summaries
+    ]
+    r.close()
+
+
+def test_restore_runs_on_the_card_by_default(tmp_path, fake_a, monkeypatch):
+    """restore(device=None) means the card: where there is none it raises,
+    and never quietly restores onto the CPU."""
+    s = open_series(repro_torch.RegisterSeriesConfig(refine=False),
+                    checkpoint_dir=str(tmp_path))
+    s.feed(_frames(4, 0))
+    s.checkpoint()
+    s.close()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        service.SeriesSession.restore(str(tmp_path))
+
+
+def _ref_fake_register_pair(ref, tmpl, init=None, cfg=None):
+    """The reference's per-pair form of ``_fake_register_pair``."""
+    import jax.numpy as jnp
+    from repro.core.registration import RegResult as RefRegResult
+
+    angle = (ref[2, 3] - tmpl[3, 2]) * 1e-3
+    shift = jnp.stack([ref[0, 0] - tmpl[0, 0], 0.5 * (ref[1, 1] - tmpl[1, 1])])
+    return RefRegResult({"angle": angle, "shift": shift}, jnp.zeros(()),
+                        jnp.asarray(3, jnp.int32))
+
+
+@pytest.mark.parametrize("writer", ["repro", "repro_torch"])
+def test_snapshot_crosses_packages(tmp_path, fake_a, monkeypatch, writer):
+    """A snapshot written by either package restores in the other and
+    extends to what the restoring package's own uninterrupted session
+    gives (atol 1e-7), and to the other package's within the parity
+    tolerance (their float32 compositions round apart by an ulp)."""
+    import jax.numpy as jnp
+
+    import repro
+    import repro.service as ref_service
+
+    monkeypatch.setattr(ref_service, "register_pair", _ref_fake_register_pair)
+    frames = _frames(20, 42).numpy()
+    pcfg = repro_torch.RegisterSeriesConfig(refine=False)
+    rcfg = repro.RegisterSeriesConfig(refine=False)
+    with open_series(pcfg) as u:
+        u.feed(torch.from_numpy(frames[:12]))
+        port_ref = u.extend(torch.from_numpy(frames[12:]))
+    with ref_service.open_series(rcfg) as u:
+        u.feed(jnp.asarray(frames[:12]))
+        ref_ref = u.extend(jnp.asarray(frames[12:]))
+    ckpt = str(tmp_path / "ckpt")
+    if writer == "repro":
+        s = ref_service.open_series(rcfg, checkpoint_dir=ckpt)
+        s.feed(jnp.asarray(frames[:12]))
+    else:
+        s = open_series(pcfg, checkpoint_dir=ckpt)
+        s.feed(torch.from_numpy(frames[:12]))
+    assert s.checkpoint() == 12
+    s.close()
+    with open(tmp_path / "ckpt" / "step_00000012" / "manifest.json") as f:
+        keys = json.load(f)["keys"]
+    assert keys == ["cum/angle", "cum/shift", "frame0", "last_frame",
+                    "pair_iters"]
+
+    if writer == "repro":
+        r = service.SeriesSession.restore(ckpt, device="cpu")
+        got = r.extend(torch.from_numpy(frames[12:]))
+        own, other = port_ref, ref_ref
+        shift = got.deformations["shift"].numpy()
+    else:
+        r = ref_service.SeriesSession.restore(ckpt)
+        got = r.extend(jnp.asarray(frames[12:]))
+        own, other = ref_ref, port_ref
+        shift = np.asarray(got.deformations["shift"])
+    r.close()
+    assert got.n_frames == 20 and len(r.summaries) == 2
+    np.testing.assert_allclose(shift, np.asarray(own.deformations["shift"]),
+                               atol=1e-7)
+    np.testing.assert_allclose(shift, np.asarray(other.deformations["shift"]),
+                               atol=1e-6)
 
 
 # --------------------------------------------------- telemetry isolation
