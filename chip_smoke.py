@@ -42,6 +42,19 @@ kernels' launch counts zeroed just before it and read just after:
   deformations on the card against ``vector``, the backend with the
   paper's registration-like costs, and the host simulator's static and
   stealing makespans at 1,020 and 6,144 cores;
+* ``collective``: ``core/distributed.py`` on a mesh of 8 positions of the
+  card (``core/spmd.py``): ``collective_scan`` of every combine-only
+  circuit, the Träff exscan (3 rounds), the 2x4 ("pod", "data")
+  hierarchical scans and the blocked scan (both strategies, 4,096 rows a
+  position, add and the affine pytree op), each bit-equal to exact
+  prefixes;
+* ``sharded``: ``engine.scan(backend="sharded")`` on meshes of 4 and 8
+  positions of the card: add at 2^24 (plain, seeded, masked, stealing off,
+  2^24 + 7 rows), rigid composition of 4,096 deformations and the affine
+  pytree op, with phase-2 rounds against the simulator's, the claims and
+  phase 3's ``lookback_scan`` launches (one a position).  One card's
+  positions check values, launches and the protocol, not multi-device
+  speed;
 * ``lm_serve``: ``repro_torch.launch.serve.Server`` serving Zamba2-7B at full
   width and depth (81 layers, bf16, seeded random weights on the card) with
   the kernel backends passed in through ``acfg``: 4 requests (three 512-token
@@ -63,13 +76,14 @@ library call's, the bound, the HGMMA count of flash_attention's and
 chunk_scan's SASS and lookback_scan's longest walk),
 ``series``, ``series_hier``, ``series_compose``,
 ``scan_engine``, ``serving``, ``series_restore``, ``simulate``,
-``lm_serve``, ``lm_check``, ``kernels`` (JSON), the card's
+``collective``, ``sharded``, ``lm_serve``, ``lm_check``, ``kernels``
+(JSON), the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``.  Any
 failed phase raises and the script exits non-zero; without a CUDA device it
 exits 2 and prints no result.
 
 ``--cpu-rehearsal`` runs the series, compose, engine, serving, restore,
-simulate and LM phases on the CPU at small sizes (the LM phases on Zamba2's smoke config) with the kernels'
+simulate, collective, sharded and LM phases on the CPU at small sizes (the LM phases on Zamba2's smoke config) with the kernels'
 plain versions, to rehearse the script's flow without a card; it skips the
 kernel phases and exits 3 without a result line.
 """
@@ -79,6 +93,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1345,6 +1360,240 @@ def run_simulate(device, n: int = SIM_N) -> dict:
     return out
 
 
+# The multi-device scans on one card: meshes of positions on cuda:0 (one
+# card's machine has one card), 8 positions for the collectives and 4 and 8
+# for the sharded backend.  They check values, launches and the protocol;
+# positions on one card are not devices, so no multi-device speed is read.
+COLLECTIVE_ROWS = 4096       # distributed_blocked_scan rows a position
+SHARDED_MESHES = (4, 8)
+
+
+def _walled(call, on_card: bool):
+    """``call()`` and its wall ms, the card synchronised on both sides."""
+    if on_card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = call()
+    if on_card:
+        torch.cuda.synchronize()
+    return y, (time.perf_counter() - t0) * 1e3
+
+
+def _affine_inputs(n: int, device, seed: int):
+    """Affine maps (m, c) with integer values whose sequential composition
+    stays exact in float32: four doublings in m, c in [-4, 4]."""
+    rng = np.random.default_rng(seed)
+    m = np.ones(n, np.float32)
+    m[rng.choice(n, 4, replace=False)] = 2.0
+    c = rng.integers(-4, 5, n).astype(np.float32)
+    return (torch.tensor(m, device=device), torch.tensor(c, device=device))
+
+
+def _affine_fold(m, c):
+    """The sequential fold of affine maps, in float64 on the host."""
+    mm, cc = m.double().cpu().numpy(), c.double().cpu().numpy()
+    om, oc = np.empty_like(mm), np.empty_like(cc)
+    am, ac = mm[0], cc[0]
+    om[0], oc[0] = am, ac
+    for i in range(1, len(mm)):
+        am, ac = am * mm[i], ac * mm[i] + cc[i]
+        om[i], oc[i] = am, ac
+    return (torch.tensor(om, dtype=torch.float32),
+            torch.tensor(oc, dtype=torch.float32))
+
+
+def _affine(a, b):
+    return (a[0] * b[0], a[1] * b[0] + b[1])
+
+
+def run_collective(device, rows: int = COLLECTIVE_ROWS) -> dict:
+    """``core/distributed.py`` on a mesh of 8 positions of ``device``: the
+    ``collective_scan`` of every combine-only circuit, the Träff exscan,
+    the 2x4 ("pod", "data") hierarchy, and the local-global-local blocked
+    scan (both strategies, ``rows`` a position; the affine pytree op too),
+    each bit-equal to the exact prefixes of integer-valued data."""
+    from functools import partial
+
+    from repro_torch.core import distributed as dist
+    from repro_torch.core.circuits import GENERATORS
+    from repro_torch.core.engine import get_plan
+    from repro_torch.core.spmd import Mesh, P, shard_map
+
+    on_card = device.type == "cuda"
+    mesh = Mesh([device] * 8, ("x",))
+    mesh2 = Mesh([device] * 8, ("pod", "data"), (2, 4))
+    spec2 = P(("pod", "data"))
+    x = _ints(8, 1024, device, seed=60)          # one 1024-wide element each
+    exact = torch.cumsum(x.double(), 0).float()
+    out = {"positions": 8, "element_width": x.shape[1], "rows": rows,
+           "calls": {}}
+
+    def held(name, call, ok):
+        walls = []
+        for _ in range(2):
+            y, ms = _walled(call, on_card)
+            walls.append(ms)
+            if not ok(y):
+                raise AssertionError(f"collective {name}: wrong result")
+        out["calls"][name] = {"wall_ms_first": walls[0],
+                              "wall_ms_second": walls[1]}
+
+    add = torch.add
+    circuits = [a for a in sorted(GENERATORS)
+                if get_plan(a, 8).combine_only()]
+    out["circuits"] = circuits
+    for alg in circuits:
+        f = shard_map(partial(dist.collective_scan, add, axis_name="x",
+                              algorithm=alg), mesh, P("x"), P("x"))
+        held(f"collective_scan_{alg}", lambda f=f: f(x),
+             lambda y: torch.equal(y, exact))
+    f = shard_map(partial(dist.exclusive_collective_scan, add, axis_name="x"),
+                  mesh, P("x"), P("x"))
+    held("exclusive_collective_scan", lambda: f(x),
+         lambda y: torch.equal(y[1:], exact[:-1]) and not y[0].any())
+    out["exscan_rounds"] = dist.last_exscan_rounds()
+    if out["exscan_rounds"] != 3:
+        raise AssertionError(f"exscan ran {out['exscan_rounds']} rounds, "
+                             "want ceil(log2 8) = 3")
+    f = shard_map(partial(dist.hierarchical_collective_scan, add,
+                          axis_names=("pod", "data")), mesh2, spec2, spec2)
+    held("hierarchical_collective_scan", lambda: f(x),
+         lambda y: torch.equal(y, exact))
+    f = shard_map(partial(dist.exclusive_hierarchical_scan, add,
+                          axis_names=("pod", "data")), mesh2, spec2, spec2)
+    held("exclusive_hierarchical_scan", lambda: f(x),
+         lambda y: torch.equal(y[1:], exact[:-1]) and not y[0].any())
+    out["exhier_rounds"] = dist._exscan_rounds_log[-2:]
+
+    xs = _ints(8 * rows, 1, device, seed=61)[:, 0]
+    exact_xs = torch.cumsum(xs.double(), 0).float()
+    m, c = _affine_inputs(8 * rows, device, seed=62)
+    fold_m, fold_c = _affine_fold(m, c)
+    for strat in ("scan_then_map", "reduce_then_scan"):
+        f = shard_map(partial(dist.distributed_blocked_scan, add,
+                              axis_names=("pod", "data"), strategy=strat),
+                      mesh2, spec2, spec2)
+        held(f"distributed_blocked_scan_{strat}", lambda f=f: f(xs),
+             lambda y: torch.equal(y, exact_xs))
+        f = shard_map(partial(dist.distributed_blocked_scan, _affine,
+                              axis_names=("pod", "data"), strategy=strat),
+                      mesh2, (spec2,), spec2)
+        held(f"distributed_blocked_scan_{strat}_affine",
+             lambda f=f: f((m, c)),
+             lambda y: torch.equal(y[0].cpu(), fold_m)
+             and torch.equal(y[1].cpu(), fold_c))
+    return out
+
+
+def run_sharded(device, n: int, series_len: int = SERIES_LEN,
+                meshes=SHARDED_MESHES) -> dict:
+    """``engine.scan(backend="sharded")`` with explicit meshes of 4 and 8
+    positions of ``device``: add at ``n`` rows (plain, seeded, masked,
+    stealing off, an odd n), rigid composition of ``series_len``
+    deformations, and the affine pytree op (no kernel form: the plain
+    phase 3); each call checked, its launches counted."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.core.deformation import compose_batched
+    from repro_torch.core.engine import scan, sharded
+    from repro_torch.core.engine.sharded import AXIS
+    from repro_torch.core.simulator import (
+        constant_costs,
+        simulate_distributed_scan,
+    )
+    from repro_torch.core.spmd import Mesh
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    on_card = device.type == "cuda"
+    x = _ints(n, 1, device, seed=70)[:, 0]
+    exact = torch.cumsum(x.double(), 0).float()
+    seed = torch.tensor(1000.0, device=device)
+    g = torch.Generator(device="cpu").manual_seed(71)
+    valid = (torch.rand(n, generator=g) < 0.7).to(device)
+    masked = _masked_cumsum(x, valid)
+    x_odd = _ints(n + 7, 1, device, seed=72)[:, 0]
+    exact_odd = torch.cumsum(x_odd.double(), 0).float()
+    dfm = _deformations(series_len, device, seed=73)
+    a64, s64 = _chain64(dfm["angle"], dfm["shift"])
+    m, c = _affine_inputs(series_len * 8, device, seed=74)
+    want_m, want_c = scan(_affine, (m, c), backend="vector")
+    fold_m, fold_c = _affine_fold(m, c)
+    if not (torch.equal(want_m.cpu(), fold_m)
+            and torch.equal(want_c.cpu(), fold_c)):
+        raise AssertionError("vector's affine scan is not the exact fold")
+
+    out = {"n": n, "series_len": series_len, "meshes": {}}
+    total_launches = 0
+    for p in meshes:
+        mesh = Mesh([device] * p, (AXIS,))
+        sim_rounds = simulate_distributed_scan(
+            constant_costs(4096), ranks=p, algorithm="exscan").phase2_rounds
+        calls = [
+            ("add", lambda: scan(torch.add, x, backend="sharded", mesh=mesh),
+             lambda y: torch.equal(y, exact), True),
+            ("add_seeded",
+             lambda: scan(torch.add, x, backend="sharded", mesh=mesh,
+                          seed=seed),
+             lambda y: torch.equal(y, exact + seed), True),
+            ("add_masked",
+             lambda: scan(torch.add, x, backend="sharded", mesh=mesh,
+                          where=valid),
+             lambda y: torch.equal(y, masked), True),
+            ("add_no_stealing",
+             lambda: scan(torch.add, x, backend="sharded", mesh=mesh,
+                          stealing=False),
+             lambda y: torch.equal(y, exact), True),
+            ("add_odd_n",
+             lambda: scan(torch.add, x_odd, backend="sharded", mesh=mesh),
+             lambda y: torch.equal(y, exact_odd), True),
+            ("rigid_compose",
+             lambda: scan(compose_batched, dfm, backend="sharded", mesh=mesh),
+             lambda y: bool(_check_vs_chain64(y["angle"], y["shift"], a64,
+                                              s64, f"sharded p={p} compose")),
+             True),
+            ("affine_pytree",
+             lambda: scan(_affine, (m, c), backend="sharded", mesh=mesh),
+             lambda y: torch.equal(y[0], want_m) and torch.equal(y[1], want_c),
+             False),
+        ]
+        res = {}
+        for name, call, ok, kernel in calls:
+            for _ in range(2):      # the second call's numbers are read
+                reset_launch_counts()
+                y, ms = _walled(call, on_card)
+                launches = launch_counts().get("lookback_scan", 0)
+                if not ok(y):
+                    raise AssertionError(f"sharded p={p} {name}: wrong result")
+            st = sharded.last_stats
+            rounds = math.ceil(math.log2(p))
+            if not (st.phase2_rounds == rounds == sim_rounds
+                    == dist.last_exscan_rounds()):
+                raise AssertionError(
+                    f"sharded p={p} {name}: phase 2 ran {st.phase2_rounds} "
+                    f"rounds (exscan log {dist.last_exscan_rounds()}, "
+                    f"simulator {sim_rounds}), want {rounds}")
+            want_route = "lookback_scan" if on_card and kernel else "plain"
+            if st.phase3_route != want_route or (
+                    on_card and launches != (p if kernel else 0)):
+                raise AssertionError(
+                    f"sharded p={p} {name}: phase 3 {st.phase3_route} with "
+                    f"{launches} lookback_scan launches")
+            total_launches += launches
+            res[name] = {
+                "wall_ms_second": ms,
+                "phase_seconds": st.phase_seconds,
+                "phase2_rounds": st.phase2_rounds,
+                "boundary_claims": st.boundary_claims,
+                "cross_steals": st.cross_steals,
+                "forced_blocks": st.forced_blocks,
+                "phase3_route": st.phase3_route,
+                "lookback_scan_launches": launches,
+            }
+        out["meshes"][str(p)] = {"simulator_phase2_rounds": sim_rounds,
+                                 "calls": res}
+    out["lookback_scan_launches"] = total_launches
+    return out
+
+
 def run_scan_engine(device, n: int, series_len: int, rounds_n: int) -> dict:
     """``repro_torch.core.engine.scan`` on ``device`` tensors, by dispatch
     and through the ``pallas`` backend's two modes (rounds at ``rounds_n``,
@@ -2176,9 +2425,10 @@ def _close_pool() -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run the series, engine, serving, restore, simulate "
-                         "and LM phases on the CPU at small sizes with the "
-                         "plain kernels; exits 3 with no result line")
+                    help="run the series, engine, serving, restore, "
+                         "simulate, collective, sharded and LM phases on "
+                         "the CPU at small sizes with the plain kernels; "
+                         "exits 3 with no result line")
     ap.add_argument("--previous-csrc", default=None,
                     help="csrc directory of the kernels' previous designs "
                          "(e.g. from git archive of an earlier commit): "
@@ -2205,6 +2455,8 @@ def main() -> int:
             ("batch_b", 5, True, 4, False))))
         _line("series_restore", run_series_restore(dev, 9, 96, 5))
         _line("simulate", run_simulate(dev, 256))
+        _line("collective", run_collective(dev, rows=64))
+        _line("sharded", run_sharded(dev, 1 << 12, series_len=256))
         _line("lm_serve", run_lm_serve(dev, smoke=True))
         _line("lm_check", run_lm_check(dev, smoke=True))
         _close_pool()
@@ -2275,6 +2527,9 @@ def main() -> int:
     restore = run_series_restore(dev, 33, SIZE, 17)
     _line("series_restore", restore)
     _line("simulate", run_simulate(dev))
+    _line("collective", run_collective(dev))
+    shard = run_sharded(dev, SCAN_N)
+    _line("sharded", shard)
     serve = run_lm_serve(dev)
     _line("lm_serve", serve)
     check = run_lm_check(dev)
@@ -2289,6 +2544,10 @@ def main() -> int:
     kl["launches_series_compose"] = compose["lookback_scan_launches"]
     kl["launches_scan_engine"] = engine_launches.get("lookback_scan", 0)
     kl["launches"] = kl["launches_series_compose"] + kl["launches_scan_engine"]
+    kl["launches_sharded"] = shard["lookback_scan_launches"]
+    if not kl["launches_sharded"] >= 1:
+        raise AssertionError("lookback_scan was never launched on the "
+                             "sharded path")
     for entry in (k, kl):
         entry["launches_serving"] = serving[f"{entry['name']}_launches"]
         entry["launches_series_restore"] = sum(

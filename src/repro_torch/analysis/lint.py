@@ -83,6 +83,7 @@ class LintConfig:
     hot_path_modules: Tuple[str, ...] = (
         "core/work_stealing.py",
         "core/engine/hierarchical.py",
+        "core/engine/sharded.py",
         "core/engine/cost.py",
         "core/simulator.py",
         "runtime/scheduler.py",
@@ -109,6 +110,7 @@ class LintConfig:
     #: enforces.
     lockset_modules: Tuple[str, ...] = (
         "core/work_stealing.py",
+        "core/engine/sharded.py",
         "core/engine/telemetry.py",
         "runtime/scheduler.py",
         "runtime/compile_cache.py",

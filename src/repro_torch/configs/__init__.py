@@ -3,7 +3,8 @@
 
 It lists only the configurations the port can run: Zamba2-7B (Mamba2 and
 shared attention blocks).  The reference's other nine wait for their block
-kinds (``ROADMAP.md``, Queue 1 item 4); asking for any other name raises
+kinds (``ROADMAP.md`` Queue 1, the LM configurations and block kinds);
+asking for any other name raises
 ``NotImplementedError``.
 """
 
@@ -32,8 +33,8 @@ def _module(name: str):
     if mod_name not in _ARCHS:
         raise NotImplementedError(
             f"config {name!r} is not ported (the port has {list(ALIASES)}; "
-            "the reference's others come in a later slice, ROADMAP.md "
-            "Queue 1 item 4)"
+            "the reference's others wait for the LM configurations and "
+            "block kinds, ROADMAP.md Queue 1)"
         )
     return import_module(f"repro_torch.configs.{mod_name}")
 

@@ -4,10 +4,9 @@ compiler, pluggable backends, cost-model dispatch.
   circuits.py   prefix-circuit IR (rounds of combine/cross/zero entries)
   plan.py       ``lower``: circuit → :class:`ExecutionPlan`, LRU-cached
   backends.py   registry of plan-consuming executors (vector / element /
-                blocked / worksteal, + hierarchical from hierarchical.py,
-                decoupled from decoupled_backend.py and pallas from
-                pallas_backend.py; the backends of later slices are
-                registered as stubs)
+                blocked / worksteal / simulate / collective, + hierarchical
+                from hierarchical.py, decoupled from decoupled_backend.py,
+                pallas from pallas_backend.py and sharded from sharded.py)
   cost.py       operator cost model + dispatcher
 
 Public entry point::
@@ -69,10 +68,12 @@ from .telemetry import (
     release_telemetry,
 )
 
-# Register the "hierarchical", "decoupled" and "pallas" backends on import.
+# Register the "hierarchical", "decoupled", "pallas" and "sharded" backends
+# on import.
 from . import decoupled_backend as _decoupled  # noqa: F401
 from . import hierarchical as _hierarchical  # noqa: F401
 from . import pallas_backend as _pallas  # noqa: F401
+from . import sharded as _sharded  # noqa: F401
 
 Op = Callable[[Any, Any], Any]
 
@@ -180,6 +181,8 @@ def scan(
     num_threads: Optional[int] = None,
     num_segments: Optional[int] = None,
     strategy: Optional[str] = None,
+    axis_name: Optional[str] = None,
+    axis_size: Optional[int] = None,
     stealing: bool = True,
     cross_steal: Optional[bool] = None,
     element_costs: Optional[Sequence[float]] = None,
@@ -189,6 +192,7 @@ def scan(
     use_pallas: Optional[bool] = None,
     pool=None,
     devices: Optional[int] = None,
+    mesh=None,
 ):
     """Inclusive prefix scan of ``xs`` with associative ``op``.
 
@@ -210,15 +214,21 @@ def scan(
     for its duration; the dispatcher reads the pool's occupancy and tenant
     count.
 
-    ``devices``: local CUDA device count for the dispatcher's multi-device
-    rule (default: ``torch.cuda.device_count()`` when the scan's tensors are
-    on a CUDA device, else 1).
+    ``devices``/``mesh``: device count / explicit 1-D ``spmd.Mesh`` for
+    the multi-device ``sharded`` backend (one long series split into
+    per-position shards: stealing phase 1, round-efficient exscan phase 2).
+    The dispatcher picks it for long batchable series once ``devices``
+    (default: the mesh's size, else ``torch.cuda.device_count()`` when the
+    scan's tensors are on a CUDA device, else 1) reaches
+    ``SHARDED_MIN_DEVICES``.
 
     Backend-specific options: ``num_blocks``/``strategy`` (blocked),
     ``num_threads``/``stealing`` (worksteal), ``num_segments``/
     ``num_threads``/``cross_steal``/``element_costs`` (hierarchical),
     ``num_blocks`` (decoupled: the tile count; pallas: above 1, tiles mode
-    with that many tiles, else one ``fused_round`` launch a plan round).
+    with that many tiles, else one ``fused_round`` launch a plan round),
+    ``axis_name``/``axis_size`` (collective — call inside
+    ``spmd.shard_map``; ``xs`` is this position's element).
     ``use_pallas``
     (hierarchical array and device phase-1 paths): run the local phases
     through the ``tile_local_scan``/``tile_apply`` kernels; default: when
@@ -242,19 +252,21 @@ def scan(
                 where=where, backend=backend, algorithm=algorithm,
                 op_cost=op_cost, measure=measure, num_blocks=num_blocks,
                 num_threads=num_threads, num_segments=num_segments,
-                strategy=strategy, stealing=stealing, cross_steal=cross_steal,
+                strategy=strategy, axis_name=axis_name, axis_size=axis_size,
+                stealing=stealing, cross_steal=cross_steal,
                 element_costs=element_costs, workers=workers, seed=seed,
                 device_phase1=device_phase1, use_pallas=use_pallas,
-                pool=pool, devices=devices,
+                pool=pool, devices=devices, mesh=mesh,
             )
     return _scan_impl(
         op, xs, element_domain,
         where=where, backend=backend, algorithm=algorithm, op_cost=op_cost,
         measure=measure, num_blocks=num_blocks, num_threads=num_threads,
-        num_segments=num_segments, strategy=strategy, stealing=stealing,
-        cross_steal=cross_steal, element_costs=element_costs,
-        workers=workers, seed=seed, device_phase1=device_phase1,
-        use_pallas=use_pallas, pool=pool, devices=devices,
+        num_segments=num_segments, strategy=strategy, axis_name=axis_name,
+        axis_size=axis_size, stealing=stealing, cross_steal=cross_steal,
+        element_costs=element_costs, workers=workers, seed=seed,
+        device_phase1=device_phase1, use_pallas=use_pallas, pool=pool,
+        devices=devices, mesh=mesh,
     )
 
 
@@ -282,6 +294,8 @@ def _scan_impl(
     num_threads,
     num_segments,
     strategy,
+    axis_name,
+    axis_size,
     stealing,
     cross_steal,
     element_costs,
@@ -291,10 +305,24 @@ def _scan_impl(
     use_pallas,
     pool,
     devices,
+    mesh,
 ):
-    # --- collective: SPMD over a mesh axis (not ported: the stub raises).
+    # --- collective: SPMD over a mesh axis; xs is this position's element.
     if backend == "collective":
-        return get_backend("collective")(op, None, xs)
+        if axis_name is None:
+            raise ValueError("backend='collective' requires axis_name")
+        if where is not None:
+            raise NotImplementedError(
+                "where masks are not supported by the collective backend"
+            )
+        from ..distributed import _axis_size
+
+        p = _axis_size(axis_name, axis_size)
+        if p == 1:
+            return xs
+        plan = get_plan(algorithm or "ladner_fischer", p)
+        ys, _ = get_backend("collective")(op, plan, xs, axis_name=axis_name)
+        return ys
 
     n = len(xs) if element_domain else _leading_n(xs)
     if n == 0:
@@ -325,7 +353,10 @@ def _scan_impl(
             pool.occupancy() if element_domain and pool is not None else None
         )
         if devices is None:
-            devices = torch.cuda.device_count() if accel else 1
+            if mesh is not None:
+                devices = mesh.size
+            else:
+                devices = torch.cuda.device_count() if accel else 1
         d = dispatch(n, domain="element" if element_domain else "array",
                      op_cost=cost, workers=workers,
                      op_imbalance=op_imbalance_from(op),
@@ -367,11 +398,13 @@ def _scan_impl(
                    where=where)
         return ys
 
-    # --- sharded multi-device execution (a later slice: the stub raises),
-    # called as the reference calls it.
+    # --- sharded multi-device execution: one series across the positions
+    # of a mesh — stealing phase 1, round-efficient exscan phase 2, seeded
+    # phase 3 (engine/sharded.py).
     if backend == "sharded":
-        ys, _ = fn(op, None, xs, num_blocks=num_blocks, seed=seed,
-                   where=where, devices=devices)
+        ys, _ = fn(op, None, xs, devices=devices, mesh=mesh,
+                   num_blocks=num_blocks, seed=seed, where=where,
+                   stealing=stealing)
         return ys
 
     # --- backends with their own decomposition (plan covers the small phase)

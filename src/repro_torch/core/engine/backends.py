@@ -20,10 +20,11 @@ zeroing), else None.  Registered backends:
   pallas     a plan as one ``fused_plan`` kernel (or a ``fused_round``
              kernel a round), or tiles over the tile kernels
              (``engine/pallas_backend.py``)
-
-Not ported yet, registered as stubs that raise ``NotImplementedError``
-naming their ``ROADMAP.md`` item, so that a dispatch to one is loud:
-``collective`` and ``sharded``.
+  collective one element a mesh position: the plan's rounds as
+             ``spmd`` ppermute/all_gather rounds (``core/distributed.py``;
+             call inside ``spmd.shard_map``)
+  sharded    one series across the positions of a mesh, with boundary
+             stealing (``engine/sharded.py``)
 """
 
 from __future__ import annotations
@@ -64,6 +65,10 @@ def get_backend(name: str) -> Backend:
 
 def available_backends() -> List[str]:
     return sorted(_REGISTRY)
+
+
+def plan_key(plan: ExecutionPlan) -> Tuple:
+    return (plan.circuit.name, plan.n, plan.mask)
 
 
 def dtype_struct(xs) -> Tuple:
@@ -258,25 +263,147 @@ def exec_simulate(
 
 
 # ---------------------------------------------------------------------------
-# backends of later slices
+# collective lowering — plan rounds as ppermute/all_gather schedules
 # ---------------------------------------------------------------------------
 
-#: Backend -> the ``ROADMAP.md`` item (Queue 1) that ports it.
-UNPORTED = {
-    "collective": "Queue 1 item 6 (distributed / sharded execution)",
-    "sharded": "Queue 1 item 6 (distributed / sharded execution)",
-}
+
+@dataclasses.dataclass(frozen=True)
+class CollectiveRound:
+    """One communication round over a mesh axis of size ``p``.
+
+    ``perm``: (src, dst) pairs for ``spmd.ppermute`` (fanout == 1 rounds).
+    ``src_of``: per-device source index for all_gather+select multicast rounds.
+    ``dst_mask``: boolean per device — which devices apply the operator.
+
+    Multi-register schedules (``lower_collective(..., registers=R)``, the
+    Träff exscan family: R virtual wires per device) extend the layout:
+    ``dst_mask``/``move_mask`` have shape (R, p) — per register, which devices
+    combine (``y[r] = op(recv, y[r])``) or overwrite (``y[r] = recv``) — and
+    ``send_reg`` names the single register whose value goes over the wire.
+    """
+
+    perm: Tuple[Tuple[int, int], ...]
+    src_of: np.ndarray
+    dst_mask: np.ndarray
+    fanout: int
+    move_mask: Optional[np.ndarray] = None
+    send_reg: int = 0
 
 
-def not_ported(what: str, item: str) -> Callable[..., Any]:
-    """An executor that raises: ``what`` waits for ``ROADMAP.md`` ``item``."""
+def lower_collective(
+    plan: ExecutionPlan, *, registers: int = 1
+) -> Tuple[CollectiveRound, ...]:
+    """Lower a plan into per-round collective schedules.
 
-    def fn(*_args, **_kwargs):
+    ``registers=1`` (default): combine-only plans, one wire per device.
+    ``registers=R>1``: the plan's ``n`` must be ``R * p``; wire ``w`` lives on
+    device ``w % p`` in register ``w // p``.  Moves are allowed (they become
+    received-value overwrites) but each round must send from a single register
+    and deliver at most one message per destination device — the shape of the
+    Träff 2025 exscan schedules, where one message updates both registers.
+    """
+    if registers == 1 and not plan.combine_only():
         raise NotImplementedError(
-            f"{what} is not ported to repro_torch yet (ROADMAP.md, {item})"
+            f"collective execution supports combine-only circuits, got "
+            f"{plan.circuit.name} (moves={plan.num_moves()}, "
+            f"total={plan.total_available})"
         )
+    if registers > 1 and plan.total_available:
+        raise NotImplementedError(
+            "multi-register collective execution does not support plans "
+            "with capture_total rounds"
+        )
+    if plan.n % registers:
+        raise ValueError(
+            f"plan width {plan.n} not divisible by registers={registers}"
+        )
+    key = (plan_key(plan), "collective", registers)
+    cached = lowered_cache.get(key)
+    if cached is not None:
+        return cached
+    p = plan.n // registers
+    out: List[CollectiveRound] = []
+    for rnd in plan.rounds:
+        if registers == 1:
+            pairs = [(c[4], c[2]) for c in rnd.combines]  # (comm_src, dst)
+            srcs = [s for s, _ in pairs]
+            fanout = max((srcs.count(s) for s in set(srcs)), default=1)
+            src_of = np.zeros(p, dtype=np.int32)
+            dst_mask = np.zeros(p, dtype=bool)
+            for s, d in pairs:
+                src_of[d] = s
+                dst_mask[d] = True
+            out.append(
+                CollectiveRound(
+                    perm=tuple(pairs), src_of=src_of, dst_mask=dst_mask,
+                    fanout=fanout,
+                )
+            )
+            continue
+        # Multi-register round: device-level message schedule + per-register
+        # combine/move masks.  entries: (src_wire, dst_wire, is_combine).
+        entries = []
+        for a, b, o, _fan, cs in rnd.combines:
+            if cs != a or o != b:
+                raise NotImplementedError(
+                    f"{plan.circuit.name}: multi-register lowering expects "
+                    f"in-place combines with the communicated left operand "
+                    f"(got a={a}, b={b}, out={o}, comm_src={cs})"
+                )
+            entries.append((a, o, True))
+        for s, o, _fan in rnd.moves:
+            entries.append((s, o, False))
+        if not entries:
+            continue
+        send_regs = {s // p for s, _, _ in entries}
+        if len(send_regs) != 1:
+            raise NotImplementedError(
+                f"{plan.circuit.name}: round sends from registers "
+                f"{sorted(send_regs)}; multi-register lowering needs one"
+            )
+        send_reg = send_regs.pop()
+        src_dev_of: Dict[int, int] = {}
+        combine_mask = np.zeros((registers, p), dtype=bool)
+        move_mask = np.zeros((registers, p), dtype=bool)
+        for s, o, is_c in entries:
+            sd, dd, dr = s % p, o % p, o // p
+            prev = src_dev_of.get(dd)
+            if prev is not None and prev != sd:
+                raise NotImplementedError(
+                    f"{plan.circuit.name}: device {dd} receives from both "
+                    f"{prev} and {sd} in one round"
+                )
+            src_dev_of[dd] = sd
+            (combine_mask if is_c else move_mask)[dr, dd] = True
+        pairs = sorted((s, d) for d, s in src_dev_of.items())
+        srcs = [s for s, _ in pairs]
+        fanout = max((srcs.count(s) for s in set(srcs)), default=1)
+        src_of = np.zeros(p, dtype=np.int32)
+        for s, d in pairs:
+            src_of[d] = s
+        out.append(
+            CollectiveRound(
+                perm=tuple(pairs), src_of=src_of, dst_mask=combine_mask,
+                fanout=fanout, move_mask=move_mask, send_reg=send_reg,
+            )
+        )
+    result = tuple(out)
+    lowered_cache.put(key, result)
+    return result
 
-    return fn
+
+def exec_collective(
+    op: Op,
+    plan: ExecutionPlan,
+    x,
+    *,
+    axis_name: str,
+    **_,
+) -> Tuple[Any, Any]:
+    """SPMD execution across ``axis_name`` — call inside ``spmd.shard_map``."""
+    from ..distributed import collective_scan_plan
+
+    return collective_scan_plan(op, x, axis_name, plan), None
 
 
 register_backend("vector", exec_vector)
@@ -284,5 +411,4 @@ register_backend("element", exec_element)
 register_backend("blocked", exec_blocked)
 register_backend("worksteal", exec_worksteal)
 register_backend("simulate", exec_simulate)
-for _name, _item in UNPORTED.items():
-    register_backend(_name, not_ported(f"the {_name!r} scan backend", _item))
+register_backend("collective", exec_collective)

@@ -20,8 +20,8 @@ Backends:
                           the input dtype between the phases, the kernel
                           backends do
 
-Sequence sharding over mesh axes (``axis_names``) waits for
-``core/distributed.py`` (``ROADMAP.md`` Queue 1 item 6).
+Sequence sharding over mesh axes (``axis_names``) waits for LM
+multi-device (``ROADMAP.md`` Queue 1).
 """
 
 from __future__ import annotations
@@ -51,8 +51,8 @@ def _state_op(a, b):
 def _no_sequence_sharding(axis_names) -> None:
     if axis_names:
         raise NotImplementedError(
-            "sequence-sharded ssd_scan (axis_names) is not ported yet: it "
-            "needs core/distributed.py (ROADMAP.md Queue 1 item 6)"
+            "sequence-sharded ssd_scan (axis_names) is not ported yet "
+            "(LM multi-device, ROADMAP.md Queue 1)"
         )
 
 

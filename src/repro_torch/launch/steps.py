@@ -2,7 +2,7 @@
 
 PyTorch runs eagerly, so a step is the model function with its config
 bound.  ``make_train_step`` and the ``*_struct`` dry-run helpers come with
-training and the dry-run (``ROADMAP.md`` Queue 1 items 5 and 6).
+LM training and LM multi-device (``ROADMAP.md`` Queue 1).
 """
 
 from __future__ import annotations

@@ -2,7 +2,8 @@
 (port of ``repro/models/attention.py``).
 
 ``cross_attention`` (whisper's encoder-decoder path) comes with the encoder
-configurations (``ROADMAP.md``, Queue 1 item 4.4) and raises until then.
+configurations (``ROADMAP.md`` Queue 1, the LM configurations and block
+kinds) and raises until then.
 """
 
 from __future__ import annotations
@@ -116,5 +117,6 @@ def attention_decode(p, cfg: ArchConfig, x, pos, cache):
 def cross_attention(p, cfg: ArchConfig, x, enc_out):
     raise NotImplementedError(
         "cross_attention (encoder-decoder configurations such as whisper) "
-        "is not ported yet (ROADMAP.md Queue 1 item 4.4)"
+        "is not ported yet (the LM configurations and block kinds, "
+        "ROADMAP.md Queue 1)"
     )

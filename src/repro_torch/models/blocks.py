@@ -3,7 +3,8 @@
 
 Ported kinds: ``attn``, ``shared_attn`` and ``mamba2``.  ``moe`` (and
 ``moe.py``), ``mlstm``, ``slstm`` and cross-attention (``xattn``) come in
-later slices (``ROADMAP.md`` Queue 1 items 4.2-4.4) and raise until then.
+later slices (``ROADMAP.md`` Queue 1, the LM configurations and block
+kinds) and raise until then.
 """
 
 from __future__ import annotations
@@ -34,7 +35,8 @@ _UNPORTED_KINDS = ("moe", "mlstm", "slstm")
 
 def _not_ported(what: str):
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md Queue 1 item 4)"
+        f"{what} is not ported yet (the LM configurations and block "
+        "kinds, ROADMAP.md Queue 1)"
     )
 
 

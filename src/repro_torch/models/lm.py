@@ -7,8 +7,9 @@ dim n_super, as in the reference; the forward pass is a Python loop over
 superblocks that indexes them.  ``shared_attn`` blocks (zamba2) keep one
 unstacked parameter set used by every superblock.
 
-Not ported yet: ``loss_fn`` (training, ``ROADMAP.md`` Queue 1 item 5),
-``_encode`` and the patch/audio frontends (Queue 1 item 4.4); they raise.
+Not ported yet: ``loss_fn`` (LM training, ``ROADMAP.md`` Queue 1),
+``_encode`` and the patch/audio frontends (the LM configurations and block
+kinds, Queue 1); they raise.
 The reference's ``shardctx`` constraints are no-ops without a mesh and are
 dropped.
 """
@@ -30,7 +31,7 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, Any]:
     if cfg.encoder_layers:
         raise NotImplementedError(
             "encoder-decoder configurations are not ported yet "
-            "(ROADMAP.md Queue 1 item 4.4)"
+            "(the LM configurations and block kinds, ROADMAP.md Queue 1)"
         )
     params: Dict[str, Any] = {
         "embed": embed_init(gen, cfg.padded_vocab, cfg.d_model, cfg.pdtype),
@@ -60,7 +61,7 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, Any]:
 def _encode(params, cfg: ArchConfig, frames):
     raise NotImplementedError(
         "the encoder (whisper's audio frontend) is not ported yet "
-        "(ROADMAP.md Queue 1 item 4.4)"
+        "(the LM configurations and block kinds, ROADMAP.md Queue 1)"
     )
 
 
@@ -69,7 +70,7 @@ def _embed_inputs(params, cfg: ArchConfig, batch):
     if cfg.frontend != "none":
         raise NotImplementedError(
             f"the {cfg.frontend!r} frontend is not ported yet "
-            "(ROADMAP.md Queue 1 item 4.4)"
+            "(the LM configurations and block kinds, ROADMAP.md Queue 1)"
         )
     x = embed(params["embed"], batch["tokens"]).to(cfg.cdtype)
     return x, 0
@@ -136,7 +137,7 @@ def forward_train(params, cfg: ArchConfig, batch, *, seq_axes=None):
 def loss_fn(params, cfg: ArchConfig, batch, *, seq_axes=None):
     raise NotImplementedError(
         "training (loss_fn, chunked_cross_entropy) is not ported yet "
-        "(ROADMAP.md Queue 1 item 5)"
+        "(LM training, ROADMAP.md Queue 1)"
     )
 
 
@@ -153,7 +154,7 @@ def init_decode_states(cfg: ArchConfig, batch: int, max_len: int, device=None):
     if cfg.encoder_layers:
         raise NotImplementedError(
             "encoder-decoder configurations are not ported yet "
-            "(ROADMAP.md Queue 1 item 4.4)"
+            "(the LM configurations and block kinds, ROADMAP.md Queue 1)"
         )
     if cfg.scan_layers:
         blocks = {}

@@ -7,7 +7,8 @@ prefix circuit, i.e. reduce-then-scan (§4.1) inside the model.
 
 As in the reference, Mamba2 uses n_groups=1 (B/C shared across heads).
 The mLSTM and sLSTM blocks (xlstm-350m) come in a later slice
-(``ROADMAP.md`` Queue 1 item 4.2); their functions raise until then.
+(``ROADMAP.md`` Queue 1, the LM configurations and block kinds); their
+functions raise until then.
 """
 
 from __future__ import annotations
@@ -163,7 +164,7 @@ def mamba2_prefill(p, cfg: ArchConfig, x, state):
 def _xlstm_not_ported(*_args, **_kwargs):
     raise NotImplementedError(
         "mLSTM/sLSTM blocks (xlstm-350m) are not ported yet "
-        "(ROADMAP.md Queue 1 item 4.2)"
+        "(the LM configurations and block kinds, ROADMAP.md Queue 1)"
     )
 
 

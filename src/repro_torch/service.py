@@ -69,6 +69,7 @@ from repro_torch.core.deformation import (
     identity_deformation,
 )
 from repro_torch.core.engine import (
+    SHARDED_MIN_DEVICES,
     dispatch as cost_dispatch,
     get_telemetry,
     op_batchable_from,
@@ -388,11 +389,19 @@ class SeriesSession:
         }
         self._backend_used: Optional[str] = None
         self._scan_stats = None
+        # Pin the mesh once: every suffix scan of this series runs on the
+        # same positions.
         available = device_count(self.device)
         self._devices = max(1, min(
             self.cfg.devices if self.cfg.devices is not None else available,
             available,
         ))
+        if self._devices >= SHARDED_MIN_DEVICES:
+            from repro_torch.core.engine.sharded import default_mesh
+
+            self._mesh = default_mesh(self._devices, device=self.device)
+        else:
+            self._mesh = None
         self._pre_seconds = 0.0
         self._pre_pairs = 0
         self._feed_lock = threading.Lock()
@@ -555,6 +564,7 @@ class SeriesSession:
             algorithm=cfg.algorithm,
             workers=cfg.workers,
             devices=self._devices,
+            mesh=self._mesh,
         )
         if seed is not None:
             sd = seed.deformation
@@ -628,11 +638,16 @@ class SeriesSession:
                 seed=seed,
                 pool=self.pool,
                 devices=self._devices,
+                mesh=self._mesh,
             )
         if backend_used == "hierarchical":
             from repro_torch.core.engine import hierarchical
 
             self._scan_stats = hierarchical.last_stats
+        elif backend_used == "sharded":
+            from repro_torch.core.engine import sharded
+
+            self._scan_stats = sharded.last_stats
         return out, backend_used, op
 
     # -------------------------------------------------------------- result

@@ -442,7 +442,8 @@ def test_load_config_gives_port_root():
     assert cfg.root == "src/repro_torch"
     assert "core/work_stealing.py" in cfg.hot_path_modules
     assert cfg.thread_construction_allowed == ("runtime/scheduler.py",)
-    assert "core/engine/sharded.py" not in cfg.hot_path_modules
+    assert "core/engine/sharded.py" in cfg.hot_path_modules
+    assert "core/engine/sharded.py" in cfg.lockset_modules
     assert isinstance(cfg, LintConfig)
     import os
 

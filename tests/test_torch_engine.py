@@ -17,7 +17,6 @@ from repro.core.engine import dispatch as ref_dispatch, get_plan as ref_get_plan
 from repro.core.engine import scan as ref_scan
 from repro_torch.analysis import sync
 from repro_torch.core.engine import dispatch, get_plan, scan
-from repro_torch.core.engine.backends import UNPORTED
 from repro_torch.core.engine import hierarchical
 from repro_torch.core.work_stealing import rebalance_boundaries, stealing_reduce
 from repro_torch.interop import deformation_from_numpy
@@ -204,12 +203,19 @@ def test_argument_checks_match_reference():
 
 # ------------------------------------------- backends of later slices
 
-@pytest.mark.parametrize("name", sorted(UNPORTED))
+@pytest.mark.parametrize("name", ["collective", "sharded"])
 def test_unported_backends_raise(name):
-    elems = [_t(e) for e in _elements(4, 2)]
-    stack = {k: torch.stack([e[k] for e in elems]) for k in ("angle", "shift")}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        scan(tdef.compose_batched, stack, backend=name, num_blocks=2)
+    """The two backends that were stubs until they were ported raise on
+    the same misuse as the reference's: ``collective`` outside a shard_map
+    with no axis, ``sharded`` with a mask of the wrong length."""
+    elems = _elements(4, 2)
+    stack = {k: np.stack([e[k] for e in elems]) for k in ("angle", "shift")}
+    kw = {"where": [True] * 3} if name == "sharded" else {}
+    match = "where mask length" if name == "sharded" else "axis_name"
+    with pytest.raises(ValueError, match=match):
+        ref_scan(rdef.compose_batched, _j(stack), backend=name, **kw)
+    with pytest.raises(ValueError, match=match):
+        scan(tdef.compose_batched, _t(stack), backend=name, **kw)
 
 
 # ------------------------- hierarchical device phase 1 and array domain

@@ -2,8 +2,8 @@
 ported backend of ``repro_torch.core.engine`` equals the sequential
 left-fold oracle, at the reference test's sizes, circuits and tolerances.
 
-The reference's ``collective`` case has no ported backend yet; its
-counterpart checks that the stub raises naming its ``ROADMAP.md`` item."""
+The reference's ``collective`` case runs on an 8-position CPU mesh of
+``repro_torch.core.spmd`` (the reference's runs on 8 virtual devices)."""
 
 import numpy as np
 import pytest
@@ -112,8 +112,26 @@ def test_worksteal_matches_oracle(n):
 
 @pytest.mark.parametrize("backend", ["collective"])
 def test_unported_reference_backends_raise(backend):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """``collective`` was a stub until it was ported; outside a
+    ``shard_map`` with no axis it raises as the reference's does."""
+    with pytest.raises(ValueError, match="axis_name"):
         scan(lambda a, b: a + b, [1.0, 2.0, 3.0], backend=backend)
+
+
+def test_collective_backend_8dev():
+    """Counterpart of the reference's ``test_collective_backend_8dev``:
+    the engine's ``collective`` backend inside a shard_map of 8 positions."""
+    from functools import partial
+
+    from repro_torch.core.spmd import Mesh, P, shard_map
+
+    mesh = Mesh([torch.device("cpu")] * 8, ("x",))
+    x = torch.arange(1.0, 9.0, dtype=torch.float64)
+    for alg in ["dissemination", "ladner_fischer", "brent_kung", "sklansky"]:
+        f = shard_map(partial(scan, lambda a, b: a + b, backend="collective",
+                              axis_name="x", axis_size=8, algorithm=alg),
+                      mesh, in_specs=P("x"), out_specs=P("x"))
+        np.testing.assert_allclose(f(x).numpy(), np.cumsum(np.arange(1, 9)))
 
 
 # --------------------------------------------------- non-commutative operator

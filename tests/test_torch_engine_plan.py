@@ -125,16 +125,20 @@ def test_plan_cache_distinguishes_masks():
 
 
 # ----------------------------------------------------------- collective lower
-# The collective backend is multi-device work the port has not reached
-# (its backend raises); these hold the port's plans to what the
-# reference's lower_collective reads from them.
+# The port's lower_collective against the reference's, on the same plans.
 def test_collective_lowering_pairs_and_fanout():
+    from repro_torch.core.engine.backends import lower_collective
+
     plan = get_plan("ladner_fischer", 8)
-    rounds = ref_lower_collective(ref_get_plan("ladner_fischer", 8))
-    assert len(rounds) == plan.num_rounds()
+    rounds = lower_collective(plan)
+    ref_rounds = ref_lower_collective(ref_get_plan("ladner_fischer", 8))
+    assert len(rounds) == len(ref_rounds) == plan.num_rounds()
     # LF_0 ends with the broadcast round: fanout > 1 (MPI_Bcast analogue).
     assert max(c[3] for c in plan.rounds[-1].combines) == rounds[-1].fanout > 1
-    for rnd, prnd in zip(rounds, plan.rounds):
+    for rnd, ref, prnd in zip(rounds, ref_rounds, plan.rounds):
+        assert rnd.perm == ref.perm and rnd.fanout == ref.fanout
+        np.testing.assert_array_equal(rnd.src_of, ref.src_of)
+        np.testing.assert_array_equal(rnd.dst_mask, ref.dst_mask)
         assert len(rnd.perm) == prnd.num_combines
         assert rnd.dst_mask.sum() == prnd.num_combines
         dst = np.zeros(plan.n, dtype=bool)
@@ -143,10 +147,20 @@ def test_collective_lowering_pairs_and_fanout():
 
 
 def test_collective_lowering_rejects_blelloch():
+    from functools import partial
+
+    from repro_torch.core.engine.backends import lower_collective
+    from repro_torch.core.spmd import Mesh, P, shard_map
+
     plan = get_plan("blelloch", 8)
     assert not plan.combine_only()           # why lower_collective refuses it
     with pytest.raises(NotImplementedError):
         ref_lower_collective(ref_get_plan("blelloch", 8))
     with pytest.raises(NotImplementedError):
-        scan(lambda a, b: a + b, torch.arange(8.0), backend="collective",
-             algorithm="blelloch")
+        lower_collective(plan)
+    f = shard_map(partial(scan, lambda a, b: a + b, backend="collective",
+                          axis_name="x", algorithm="blelloch"),
+                  Mesh(["cpu"] * 8, ("x",)), in_specs=P("x"),
+                  out_specs=P("x"))
+    with pytest.raises(NotImplementedError):
+        f(torch.arange(8.0))

@@ -1086,3 +1086,72 @@ def test_simulate_backend_on_card_tensors(cuda):
     assert torch.equal(torch.stack([g["shift"] for g in got]), want["shift"])
     assert torch.equal(torch.stack([g["angle"] for g in got]), want["angle"])
     assert backends.last_trace.work == get_plan("ladner_fischer", 300).work()
+
+
+def _card_mesh(cuda, p):
+    from repro_torch.core import spmd
+    from repro_torch.core.engine.sharded import AXIS
+
+    return spmd.Mesh([cuda] * p, (AXIS,))
+
+
+@pytest.mark.parametrize("kw", [{}, {"seed": 1000.0}, {"where": 0.7},
+                                {"stealing": False}],
+                         ids=["plain", "seeded", "masked", "no_stealing"])
+@pytest.mark.parametrize("n", [1 << 20, (1 << 20) + 7, 100])
+def test_sharded_on_a_card_mesh_matches_vector(cuda, n, kw):
+    """``sharded`` on 4 positions of one card: bit-equal to ``vector`` on
+    integer-valued data, phase 3 one ``lookback_scan`` launch a position."""
+    from repro_torch.core.engine import sharded
+
+    g = torch.Generator().manual_seed(n)
+    x = torch.randint(-2, 3, (n,), generator=g).float().to(cuda)
+    opts = {}
+    if "seed" in kw:
+        opts["seed"] = torch.tensor(kw["seed"], device=cuda)
+    if "where" in kw:
+        opts["where"] = torch.rand(n, generator=g) < kw["where"]
+        opts["where"] = opts["where"].tolist()
+    if "stealing" in kw:
+        opts["stealing"] = kw["stealing"]
+    want = scan(torch.add, x, backend="vector",
+                **({"where": opts["where"]} if "where" in opts else {}))
+    if "seed" in opts:
+        want = want + opts["seed"]
+    reset_launch_counts()
+    got = scan(torch.add, x, backend="sharded", mesh=_card_mesh(cuda, 4),
+               **opts)
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda"
+    assert torch.equal(got, want)
+    st = sharded.last_stats
+    assert st.phase3_route == "lookback_scan" and st.devices == 4
+    assert st.phase2_rounds == 2
+    assert launch_counts()["lookback_scan"] == 4
+
+
+def test_sharded_on_a_card_mesh_composes_and_routes_by_op(cuda):
+    """Rigid composition on 8 positions (the kernel's rigid_compose row),
+    and the affine pytree op, which has no kernel form: the plain phase 3,
+    no launch."""
+    from repro_torch.core.engine import sharded
+
+    d = _deformations(4096, cuda, seed=8)
+    reset_launch_counts()
+    got = scan(compose_batched, d, backend="sharded", mesh=_card_mesh(cuda, 8))
+    assert launch_counts()["lookback_scan"] == 8
+    assert sharded.last_stats.phase3_route == "lookback_scan"
+    want = scan(compose_batched, d, backend="vector")
+    for k in ("angle", "shift"):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=1e-5)
+
+    aff = lambda a, b: (a[0] * b[0], a[1] * b[0] + b[1])  # noqa: E731
+    g = torch.Generator().manual_seed(9)
+    m = torch.where(torch.rand(4096, generator=g) < 0.004, 2.0, 1.0).to(cuda)
+    c = torch.randint(-4, 5, (4096,), generator=g).float().to(cuda)
+    reset_launch_counts()
+    ym, yc = scan(aff, (m, c), backend="sharded", mesh=_card_mesh(cuda, 8))
+    assert launch_counts().get("lookback_scan", 0) == 0
+    assert sharded.last_stats.phase3_route == "plain"
+    om, oc = scan(aff, (m, c), backend="vector")
+    assert torch.equal(ym, om) and torch.equal(yc, oc)
