@@ -62,29 +62,42 @@ kernels' launch counts zeroed just before it and read just after:
   ``chunk_local`` and ``chunk_apply`` 54 times each and ``flash_attention``
   27 times, decode none; the same prefill through the "xla" backends is
   compared as a finding;
+* ``lm_serve <arch>``: the same traffic on codeqwen1.5-7b, internlm2-20b
+  and qwen3-32b (``flash_attention`` at d = 128, 32, 48 and 64 launches a
+  prefill) and xlstm-350m (``chunk_local`` and ``chunk_apply`` at
+  dk = dv = 256, 18 each) at full width and depth, and qwen2-72b at full
+  width and 16 of 80 layers (its cut listed under ``reduced``); each line
+  gives the init's seconds and peak memory (at most the weights plus 2 GB)
+  and the serves' peak, each model freed before the next;
 * ``lm_check``: Zamba2-7B at full width and 3 superblocks in float32, batch 2,
-  prompt 512: logits through the kernels against the "xla" path, within 2e-2.
+  prompt 512: logits through the kernels against the "xla" path, within 2e-2;
+  ``lm_check xlstm-350m`` the same at full width and depth (the float32
+  chunk kernels at d = 256).
 
 Output, one line each: ``env``, ``build``, ``kernel warp_ncc``,
 ``kernel lookback_scan``, ``kernel tile_local_scan``, ``kernel tile_apply``,
 ``kernel fused_round`` (the per-round kernel and the whole-plan
-``fused_plan`` kernel), ``kernel chunk_local``, ``kernel chunk_apply``,
-``kernel flash_attention``, ``redesign`` (the seven kernels redesigned for
+``fused_plan`` kernel), ``kernel chunk_local``, ``kernel chunk_apply``
+(and each at the mLSTM's d = 256, ``kernel chunk_local d256``),
+``kernel flash_attention`` (and at qwen3-32b's d = 128, ``kernel
+flash_attention d128``, beside SDPA), ``redesign`` (the seven kernels redesigned for
 Hopper, warp_ncc, flash_attention, lookback_scan, fused_round, tile_apply,
 chunk_local and chunk_apply, beside their previous designs: times, the
 library call's, the bound, the HGMMA count of flash_attention's and
 chunk_scan's SASS and lookback_scan's longest walk),
 ``series``, ``series_hier``, ``series_compose``,
 ``scan_engine``, ``serving``, ``series_restore``, ``simulate``,
-``collective``, ``sharded``, ``lm_serve``, ``lm_check``, ``kernels``
+``collective``, ``sharded``, ``lm_serve`` (and one a configuration),
+``lm_check`` (and ``lm_check xlstm-350m``), ``kernels``
 (JSON), the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``.  Any
 failed phase raises and the script exits non-zero; without a CUDA device it
 exits 2 and prints no result.
 
 ``--cpu-rehearsal`` runs the series, compose, engine, serving, restore,
-simulate, collective, sharded and LM phases on the CPU at small sizes (the LM phases on Zamba2's smoke config) with the kernels'
-plain versions, to rehearse the script's flow without a card; it skips the
+simulate, collective, sharded and LM phases on the CPU at small sizes (the
+LM phases on each configuration's smoke config) with the kernels' plain
+versions, to rehearse the script's flow without a card; it skips the
 kernel phases and exits 3 without a result line.
 """
 
@@ -1797,15 +1810,11 @@ def _check_chunk_slow_decay(cs, g, l, dk, dv, device) -> dict:
     return errs
 
 
-def check_chunk_kernels(device) -> tuple:
-    """chunk_local and chunk_apply against their plain versions at the
-    serving path's shape (G = 1792, L = 128, dk = dv = 64), bf16 (the
-    path's dtype, timed) and float32, on the reference's fast-decaying
-    inputs and on slowly decaying ones."""
-    from repro_torch.kernels import chunk_scan as cs
-
-    cfg, g, l = _lm_shapes()
-    dk, dv = cfg.ssm_state, cfg.ssm_head_dim
+def _chunk_rows(cs, g, l, dk, dv, device) -> tuple:
+    """chunk_local's and chunk_apply's rows at (g, l, dk, dv), by dtype:
+    held against the plain versions on the reference's fast-decaying
+    inputs and on slowly decaying ones, timed beside the plain versions and
+    the bounds."""
     slow = _check_chunk_slow_decay(cs, g, l, dk, dv, device)
     local, apply = {}, {}
     for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
@@ -1835,6 +1844,7 @@ def check_chunk_kernels(device) -> tuple:
             "max_abs_err": err_y, "max_abs_err_state": err_s,
             "mean_abs_out": float(y_p.float().abs().mean()),
             "ms": _time_ms(lambda: cs.chunk_local_cuda(c, b, v, ca)),
+            "graph_ms": _graph_ms(lambda: cs.chunk_local_cuda(c, b, v, ca)),
             "plain_ms": _time_ms(lambda: cs.chunk_local_reference(c, b, v, ca),
                                  reps=10),
             **_bound(local_bytes, local_ops, peak),
@@ -1843,14 +1853,52 @@ def check_chunk_kernels(device) -> tuple:
         apply[tag] = {
             "max_abs_err": err_o,
             "ms": _time_ms(lambda: cs.chunk_apply_cuda(c, ca, y_p, s_prev)),
+            "graph_ms": _graph_ms(
+                lambda: cs.chunk_apply_cuda(c, ca, y_p, s_prev)),
             "plain_ms": _time_ms(
                 lambda: cs.chunk_apply_reference(c, ca, y_p, s_prev), reps=10),
             **_bound(apply_bytes, apply_ops, peak),
             "bytes": apply_bytes, "flops": apply_ops,
         }
         del c, b, v, ca, y_k, s_k, y_p, s_p, o_k, o_p, s_prev
+    return local, apply, slow
 
-    def line(name, replaces, rows):
+
+def _xlstm_chunk_shape():
+    """The mLSTM's chunk kernels in an xlstm-350m prefill: G = batch x heads
+    x chunks, L = 128, dk = dv = ssm_head_dim = 256."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("xlstm-350m")
+    chunk = min(cfg.ssm_chunk, LM_PROMPT)
+    return (LM_BATCH * cfg.n_heads * (LM_PROMPT // chunk), chunk,
+            cfg.ssm_head_dim, cfg.ssm_head_dim)
+
+
+def check_chunk_kernels(device) -> tuple:
+    """chunk_local and chunk_apply against their plain versions at
+    Zamba2's serving shape (G = 1792, L = 128, dk = dv = 64) and at the
+    mLSTM's of xlstm-350m (G = 64, dk = dv = 256), bf16 (the serving
+    dtype, timed) and float32 (lm_check's), on the reference's
+    fast-decaying inputs and on slowly decaying ones; returns the two
+    kernels' lines, the d = 256 rows under "d256"."""
+    from repro_torch.kernels import chunk_scan as cs
+
+    cfg, g, l = _lm_shapes()
+    dk, dv = cfg.ssm_state, cfg.ssm_head_dim
+    local, apply, slow = _chunk_rows(cs, g, l, dk, dv, device)
+    wide_shape = _xlstm_chunk_shape()
+    wide_local, wide_apply, wide_slow = _chunk_rows(cs, *wide_shape, device)
+
+    def wide(rows, slow):
+        head = rows["bf16"]
+        return {"shape": list(wide_shape), "dtype": "bf16",
+                **{k: head[k] for k in ("max_abs_err", "ms", "graph_ms",
+                                        "plain_ms", "bound_ms", "bound_by")},
+                "library_ms": None, "f32": rows["f32"],
+                "slow_decay_max_abs_err": slow}
+
+    def line(name, replaces, rows, wide_rows):
         head = rows["bf16"]
         return {
             "name": name, "route": "cuda", "source": cs.SOURCE,
@@ -1860,25 +1908,29 @@ def check_chunk_kernels(device) -> tuple:
             "bound_by": head["bound_by"], "library_ms": None,
             "f32": rows["f32"], "bf16": rows["bf16"],
             "slow_decay_max_abs_err": slow,
+            "d256": wide(wide_rows, wide_slow),
         }
 
-    return (line(cs.LOCAL_NAME, cs.LOCAL_REPLACES, local),
-            line(cs.APPLY_NAME, cs.APPLY_REPLACES, apply))
+    return (line(cs.LOCAL_NAME, cs.LOCAL_REPLACES, local, wide_local),
+            line(cs.APPLY_NAME, cs.APPLY_REPLACES, apply, wide_apply))
 
 
-def check_flash_attention(device) -> dict:
-    """flash_attention against its plain version at the serving path's
-    shape (BH = 128, L = 512, d = 112), bf16 (timed) and float32, causal and
-    not, at two accepted block choices; SDPA timed beside it."""
-    from repro_torch.kernels import flash_attention as fa
-
-    cfg, _g, _l = _lm_shapes()
-    bh, l, d = LM_BATCH * cfg.n_heads, LM_PROMPT, cfg.hd
+def _flash_rows(fa, heads, kv_heads, l, d, dtypes, device) -> dict:
+    """flash_attention's rows at a prefill of LM_BATCH x heads, by dtype:
+    held against its plain version (causal and not, two block choices),
+    timed beside it, SDPA on the same tensors and the bound.  With GQA
+    (kv_heads < heads) the kernel gets K and V repeated to the query
+    heads, as ops.attention feeds it."""
+    bh = LM_BATCH * heads
     rows = {}
-    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+    for dtype, tag in dtypes:
         gen = torch.Generator(device=device).manual_seed(22)
-        q, k, v = ((torch.randn((bh, l, d), generator=gen, device=device)
-                    * 0.5).to(dtype) for _ in range(3))
+        q = (torch.randn((bh, l, d), generator=gen, device=device)
+             * 0.5).to(dtype)
+        k, v = ((torch.randn((LM_BATCH, kv_heads, l, d), generator=gen,
+                             device=device) * 0.5).to(dtype)
+                .repeat_interleave(heads // kv_heads, dim=1)
+                .reshape(bh, l, d) for _ in range(2))
         err = 0.0
         for causal in (True, False):
             for blocks in ((256, 512), (128, 128)):
@@ -1889,7 +1941,7 @@ def check_flash_attention(device) -> dict:
                 torch.cuda.synchronize()
                 err = max(err, _close_to(o_k, o_p, *FLASH_TOL[dtype],
                                          f"flash_attention {tag} {kw}"))
-        q4, k4, v4 = (t.view(LM_BATCH, cfg.n_heads, l, d) for t in (q, k, v))
+        q4, k4, v4 = (t.view(LM_BATCH, heads, l, d) for t in (q, k, v))
         sdpa = torch.nn.functional.scaled_dot_product_attention
         err_sdpa = float((fa.flash_attention_cuda(q, k, v).view_as(q4).float()
                           - sdpa(q4, k4, v4, is_causal=True).float())
@@ -1904,12 +1956,37 @@ def check_flash_attention(device) -> dict:
             "max_abs_err": err, "max_abs_err_vs_sdpa": err_sdpa,
             "mean_abs_out": mag,
             "ms": _time_ms(lambda: fa.flash_attention_cuda(q, k, v)),
+            "graph_ms": _graph_ms(lambda: fa.flash_attention_cuda(q, k, v)),
             "plain_ms": _time_ms(lambda: fa.flash_attention_reference(q, k, v),
                                  reps=10),
             "library_ms": _time_ms(lambda: sdpa(q4, k4, v4, is_causal=True)),
             **_bound(nbytes, ops, peak), "bytes": nbytes, "flops": ops,
         }
         del q, k, v, q4, k4, v4
+    return rows
+
+
+def check_flash_attention(device) -> dict:
+    """flash_attention against its plain version at Zamba2's serving shape
+    (BH = 128, L = 512, d = 112), bf16 (timed) and float32, and at
+    qwen3-32b's (BH = 4 x 64, K and V repeated from 8 heads, d = 128) in
+    bf16, under "d128"; SDPA timed beside it."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+
+    cfg, _g, _l = _lm_shapes()
+    bh, l, d = LM_BATCH * cfg.n_heads, LM_PROMPT, cfg.hd
+    rows = _flash_rows(fa, cfg.n_heads, cfg.n_kv_heads, l, d,
+                       ((torch.bfloat16, "bf16"), (torch.float32, "f32")),
+                       device)
+    dense = get_config("qwen3-32b")
+    d128 = _flash_rows(fa, dense.n_heads, dense.n_kv_heads, l, dense.hd,
+                       ((torch.bfloat16, "bf16"),), device)["bf16"]
+    d128.update(shape=[LM_BATCH * dense.n_heads, l, dense.hd], dtype="bf16",
+                arch=dense.name, kv_heads=dense.n_kv_heads,
+                library_call="F.scaled_dot_product_attention(q, k, v, "
+                             f"is_causal=True) on ({LM_BATCH}, "
+                             f"{dense.n_heads}, {l}, {dense.hd})")
     head = rows["bf16"]
     return {
         "name": fa.NAME, "route": "cuda", "source": fa.SOURCE,
@@ -1919,7 +1996,7 @@ def check_flash_attention(device) -> dict:
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
         "library_call": "F.scaled_dot_product_attention(q, k, v, "
                         "is_causal=True) on (4, 32, 512, 112)",
-        "f32": rows["f32"], "bf16": rows["bf16"],
+        "f32": rows["f32"], "bf16": rows["bf16"], "d128": d128,
     }
 
 
@@ -2162,13 +2239,38 @@ def check_redesigns(device, kw: dict, kfa: dict, kl: dict, kf: dict,
     return out
 
 
-def _lm_config(smoke: bool, **kw):
+def _lm_config(smoke: bool, arch: str = "zamba2-7b", **kw):
     from dataclasses import replace
 
     from repro_torch.configs import get_config, get_smoke_config
 
-    cfg = (get_smoke_config if smoke else get_config)("zamba2-7b")
+    cfg = (get_smoke_config if smoke else get_config)(arch)
     return replace(cfg, **kw)
+
+
+def _want_prefill_launches(cfg) -> dict:
+    """The LM kernels a prefill of ``cfg`` launches: flash_attention once
+    an attention block, chunk_local and chunk_apply once a Mamba2 or mLSTM
+    block (the sLSTM runs none)."""
+    want = {}
+    for kind in cfg.block_pattern:
+        names = {"attn": ("flash_attention",),
+                 "shared_attn": ("flash_attention",),
+                 "mamba2": ("chunk_local", "chunk_apply"),
+                 "mlstm": ("chunk_local", "chunk_apply")}.get(kind, ())
+        for name in names:
+            want[name] = want.get(name, 0) + cfg.n_super
+    return want
+
+
+def _free_device(device) -> None:
+    """Return the caching allocator's free blocks to the card, so the next
+    model's weights fit."""
+    import gc
+
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
 
 
 def _sync(device) -> None:
@@ -2183,31 +2285,54 @@ def _logit_gap(a, b) -> dict:
             "top1_agree": float((a.argmax(-1) == b.argmax(-1)).float().mean())}
 
 
-def run_lm_serve(device, smoke: bool = False) -> dict:
-    """``repro_torch.launch.serve.Server`` on Zamba2-7B, the kernel backends
-    passed in through ``acfg``: 4 requests (three 512-token prompts, one of
-    300 left-padded to 512), 16 new tokens each, bf16 weights from a seeded
-    generator on the device.  Launch counts are read around the prefill and
-    around the decode; the same prefill through the "xla" backends is
-    compared as a finding."""
+# lm_serve's models: Zamba2-7B, then the dense configurations and
+# xLSTM-350M at full width and depth, but qwen2-72b (145 GB of bf16
+# weights) at 16 of its 80 layers on the 80 GB card.
+LM_SERVE_ARCHS = ("codeqwen1.5-7b", "internlm2-20b", "qwen3-32b",
+                  "qwen2-72b", "xlstm-350m")
+LM_SERVE_CUT = {"qwen2-72b": (16, "145 GB of bf16 weights at 80 layers "
+                              "against one 80 GB card; full depth waits "
+                              "for LM multi-device (ROADMAP.md Queue 1)")}
+
+
+def run_lm_serve(device, smoke: bool = False,
+                 arch: str = "zamba2-7b") -> dict:
+    """``repro_torch.launch.serve.Server`` on ``arch`` (at full width and
+    depth unless LM_SERVE_CUT cuts it), the kernel backends passed in
+    through ``acfg``: 4 requests (three 512-token prompts, one of 300
+    left-padded to 512), 16 new tokens each, bf16 weights from a seeded
+    generator on the device.  The init's seconds and peak memory, then
+    the serves' peak; launch counts are read around the prefill and around
+    the decode; the same prefill through the "xla" backends is compared as
+    a finding."""
     from repro_torch.core._tree import tensor_leaves
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.serve import Request, ServeConfig, Server
     from repro_torch.models import lm
 
-    cfg = _lm_config(smoke, attn_backend="pallas",
-                     ssm_backend="pallas")
+    layers, why = LM_SERVE_CUT.get(arch, (None, None)) if not smoke \
+        else (None, None)
+    cut = {"n_layers": layers} if layers else {}
+    cfg = _lm_config(smoke, arch, attn_backend="pallas",
+                     ssm_backend="pallas", **cut)
     on_card = device.type == "cuda"
     if on_card:
-        torch.cuda.empty_cache()
+        _free_device(device)
+        base = torch.cuda.memory_allocated(device)
         torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
-    srv = Server(ServeConfig(arch="zamba2-7b", smoke=smoke,
+    srv = Server(ServeConfig(arch=arch, smoke=smoke,
                              max_batch=LM_BATCH, max_len=LM_MAX_LEN,
                              eos_id=None), device=device, acfg=cfg)
     _sync(device)
     init_s = time.perf_counter() - t0
-    n_params = sum(t.numel() for t in tensor_leaves(srv.params))
+    leaves = tensor_leaves(srv.params)
+    n_params = sum(t.numel() for t in leaves)
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    init_peak = None
+    if on_card:
+        init_peak = torch.cuda.max_memory_allocated(device) - base
+        torch.cuda.reset_peak_memory_stats(device)
 
     seen = {"logits": [], "batch": None, "prefill": None}
     prefill_step, decode_step = srv._prefill, srv._decode
@@ -2250,13 +2375,13 @@ def run_lm_serve(device, smoke: bool = False) -> dict:
                      "decode_launches": decode_counts,
                      "outputs_head": [r.output[:4] for r in reqs]})
     peak_memory = torch.cuda.max_memory_allocated(device) if on_card else None
-    want = {"chunk_local": 2 * cfg.n_super, "chunk_apply": 2 * cfg.n_super,
-            "flash_attention": cfg.n_super}
+    want = _want_prefill_launches(cfg)
     if on_card:
         for run in runs:
             if run["prefill_launches"] != want or run["decode_launches"]:
                 raise AssertionError(
-                    f"lm_serve launches: prefill {run['prefill_launches']} "
+                    f"lm_serve {arch} launches: prefill "
+                    f"{run['prefill_launches']} "
                     f"(want {want}), decode {run['decode_launches']} (want none)")
 
     # Where the time of one prefill and one decode step goes on the card.
@@ -2275,18 +2400,31 @@ def run_lm_serve(device, smoke: bool = False) -> dict:
         del states, logits
 
     # The same prefill through the plain "xla" backends: a finding.
-    xcfg = _lm_config(smoke, attn_backend="xla", ssm_backend="xla")
+    xcfg = _lm_config(smoke, arch, attn_backend="xla", ssm_backend="xla",
+                      **cut)
     states = lm.init_decode_states(xcfg, LM_BATCH, LM_MAX_LEN, device=device)
     with torch.no_grad():
         xl, _ = lm.prefill(srv.params, xcfg, seen["batch"], states)
+    # ... and through the kernels' plain versions ("pallas_interpret"),
+    # which round y_intra where the kernels do: the kernels' own share of
+    # the gap is their distance to these.
+    pcfg = _lm_config(smoke, arch, attn_backend="pallas_interpret",
+                      ssm_backend="pallas_interpret", **cut)
+    states = lm.init_decode_states(pcfg, LM_BATCH, LM_MAX_LEN, device=device)
+    with torch.no_grad():
+        pl, _ = lm.prefill(srv.params, pcfg, seen["batch"], states)
     del states
     gap = _logit_gap(seen["logits"][0], xl)
     out = {
         "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "reduced": ({"n_layers": [layers, _lm_config(smoke, arch).n_layers],
+                     "why": why} if layers else None),
         "params": n_params, "param_count_analytic": cfg.param_count(),
+        "weight_bytes": weight_bytes,
         "dtype": cfg.param_dtype, "batch": LM_BATCH,
         "prompts": [LM_PROMPT] * (LM_BATCH - 1) + [LM_SHORT_PROMPT],
         "max_new": LM_MAX_NEW, "max_len": LM_MAX_LEN, "init_s": init_s,
+        "init_max_memory_allocated": init_peak,
         "prefill_s": runs[0]["prefill_s"], "decode_s": runs[0]["decode_s"],
         "tokens_per_s": runs[0]["tokens_per_s"],
         "prefill_launches": runs[0]["prefill_launches"],
@@ -2296,12 +2434,16 @@ def run_lm_serve(device, smoke: bool = False) -> dict:
                         "prefill_launches", "decode_launches")},
         "outputs_head": runs[0]["outputs_head"],
         "prefill_vs_xla": gap,
+        "prefill_plain_vs_xla": _logit_gap(pl, xl),
+        "prefill_vs_plain": _logit_gap(seen["logits"][0], pl),
         "max_memory_allocated": peak_memory,   # over the two serves
         "profile": profile,
     }
-    del srv, seen
-    if on_card:
-        torch.cuda.empty_cache()
+    if on_card and init_peak > weight_bytes + 2e9:
+        raise AssertionError(f"lm_serve {arch}: init peak {init_peak} B "
+                             f"above the weights ({weight_bytes} B) + 2 GB")
+    del srv, seen, xl, pl
+    _free_device(device)
     return out
 
 
@@ -2356,22 +2498,23 @@ def _profile(device, fn) -> tuple:
                             for ms, n, k in kernels[:8]]}, out
 
 
-def run_lm_check(device, smoke: bool = False) -> dict:
-    """Zamba2-7B at full width and 3 superblocks in float32, batch 2,
-    prompt 512: prefill logits (and the teacher-forced logits of every
-    position) through the kernels against the "xla" path, gated at
-    LM_CHECK_TOL."""
+def run_lm_check(device, smoke: bool = False, arch: str = "zamba2-7b",
+                 layers: int = LM_CHECK_LAYERS) -> dict:
+    """``arch`` at full width in float32 (Zamba2-7B at 3 superblocks;
+    ``layers=None``: full depth), batch 2, prompt 512: prefill logits (and
+    the teacher-forced logits of every position) through the kernels
+    against the "xla" path, gated at LM_CHECK_TOL."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import lm
 
-    layers = None if smoke else LM_CHECK_LAYERS
+    layers = None if smoke else layers
     kw = dict(param_dtype="float32", compute_dtype="float32",
               cache_dtype="float32")
     if layers:
         kw["n_layers"] = layers
-    cfg = _lm_config(smoke, attn_backend="pallas",
+    cfg = _lm_config(smoke, arch, attn_backend="pallas",
                      ssm_backend="pallas", **kw)
-    xcfg = _lm_config(smoke, attn_backend="xla", ssm_backend="xla",
+    xcfg = _lm_config(smoke, arch, attn_backend="xla", ssm_backend="xla",
                       **kw)
     params = lm.init_params(torch.Generator(device=device).manual_seed(1), cfg)
     rng = np.random.default_rng(1)
@@ -2390,16 +2533,16 @@ def run_lm_check(device, smoke: bool = False) -> dict:
         fk, _ = lm.forward_train(params, cfg, batch)
         fx, _ = lm.forward_train(params, xcfg, batch)
     if device.type == "cuda":
-        want = {"chunk_local": 2 * cfg.n_super, "chunk_apply": 2 * cfg.n_super,
-                "flash_attention": cfg.n_super}
+        want = _want_prefill_launches(cfg)
         if counts != want:
-            raise AssertionError(f"lm_check launches {counts}, want {want}")
+            raise AssertionError(f"lm_check {arch} launches {counts}, want "
+                                 f"{want}")
     for got, ref, what in ((lk, lx, "prefill"), (fk, fx, "forward")):
         if not bool(torch.isfinite(got).all()):
             raise AssertionError(f"lm_check: non-finite {what} logits")
         if not torch.allclose(got, ref, rtol=LM_CHECK_TOL, atol=LM_CHECK_TOL):
             raise AssertionError(
-                f"lm_check {what}: kernels vs xla gap "
+                f"lm_check {arch} {what}: kernels vs xla gap "
                 f"{float((got - ref).abs().max())} > {LM_CHECK_TOL}")
     out = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
            "dtype": "float32", "batch": 2, "prompt": LM_PROMPT,
@@ -2407,8 +2550,7 @@ def run_lm_check(device, smoke: bool = False) -> dict:
            "prefill_vs_xla": _logit_gap(lk, lx),
            "forward_vs_xla": _logit_gap(fk, fx)}
     del params, lk, lx, fk, fx
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
+    _free_device(device)
     return out
 
 
@@ -2458,7 +2600,11 @@ def main() -> int:
         _line("collective", run_collective(dev, rows=64))
         _line("sharded", run_sharded(dev, 1 << 12, series_len=256))
         _line("lm_serve", run_lm_serve(dev, smoke=True))
+        for arch in LM_SERVE_ARCHS:
+            _line(f"lm_serve {arch}", run_lm_serve(dev, smoke=True, arch=arch))
         _line("lm_check", run_lm_check(dev, smoke=True))
+        _line("lm_check xlstm-350m", run_lm_check(dev, smoke=True,
+                                                  arch="xlstm-350m"))
         _close_pool()
         print("cpu rehearsal: no result", file=sys.stderr)
         return 3
@@ -2502,8 +2648,11 @@ def main() -> int:
     kc_local, kc_apply = check_chunk_kernels(dev)
     _line("kernel chunk_local", kc_local)
     _line("kernel chunk_apply", kc_apply)
+    _line("kernel chunk_local d256", kc_local["d256"])
+    _line("kernel chunk_apply d256", kc_apply["d256"])
     kfa = check_flash_attention(dev)
     _line("kernel flash_attention", kfa)
+    _line("kernel flash_attention d128", kfa["d128"])
     redesign = check_redesigns(dev, k, kfa, kl, kf, kt_apply, kc_local,
                                kc_apply, args.previous_csrc)
     _line("redesign", redesign)
@@ -2532,8 +2681,14 @@ def main() -> int:
     _line("sharded", shard)
     serve = run_lm_serve(dev)
     _line("lm_serve", serve)
+    serves = {}
+    for arch in LM_SERVE_ARCHS:
+        serves[arch] = run_lm_serve(dev, arch=arch)
+        _line(f"lm_serve {arch}", serves[arch])
     check = run_lm_check(dev)
     _line("lm_check", check)
+    check_x = run_lm_check(dev, arch="xlstm-350m", layers=None)
+    _line("lm_check xlstm-350m", check_x)
 
     k["launches"] = series["warp_ncc_launches"]
     k["launches_series_hier"] = hier["warp_ncc_launches"]
@@ -2563,6 +2718,14 @@ def main() -> int:
     for kt in (kc_local, kc_apply, kfa):
         kt["launches"] = serve["prefill_launches"].get(kt["name"], 0)
         kt["launches_lm_check"] = check["prefill_launches"].get(kt["name"], 0)
+        kt["launches_lm_check_xlstm-350m"] = check_x["prefill_launches"].get(
+            kt["name"], 0)
+        kt["launches_lm_serve_by_arch"] = {
+            arch: run["prefill_launches"].get(kt["name"], 0)
+            for arch, run in serves.items()}
+        if not any(kt["launches_lm_serve_by_arch"].values()):
+            raise AssertionError(f"{kt['name']} was never launched on the "
+                                 "new configurations' lm_serve paths")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -17,11 +17,13 @@ Each takes its route from where its tensors lie: CPU tensors run the plain
 PyTorch version; CUDA tensors launch ``csrc/chunk_scan.cu`` (built at first
 use) or raise.  The kernels take float32 or bfloat16 operands (``ca``,
 ``s`` and ``s_prev`` float32), ``L <= 128`` and ``dk, dv`` multiples of 8
-up to 128, and the operands' dtype picks the kernel: bfloat16 runs the
+up to 256, and the operands' dtype picks the kernel: bfloat16 runs the
 products on the tensor cores (``wgmma``; float32 products such as
 ``att ⊙ D`` enter them as two bf16 terms), float32 the CUDA-core kernels,
 which keep float32 products throughout.  The bf16 kernels pad L and d with
-zeros in shared memory; nothing falls back from one route to the other.
+zeros in shared memory; above 128 (the mLSTM's dk = dv = 256) every kernel
+takes dv in tiles of at most 128 columns, a block a (g, tile).  Nothing
+falls back from one route to the other.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ LOCAL_LAUNCHES = _cuda.launch_counter(LOCAL_NAME)
 APPLY_LAUNCHES = _cuda.launch_counter(APPLY_NAME)
 
 MAX_L = 128
-MAX_D = 128
+MAX_D = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -20,7 +20,22 @@
 // never formed).  c, b, v and y_intra are float32 or bfloat16 (one type a
 // call); ca, s and s_prev are float32.  y_intra is rounded to v's type
 // between the two kernels, as the TPU kernels round it.  L is 1..128, dk
-// and dv multiples of 8 up to 128.
+// and dv multiples of 8 up to 256.
+//
+// Wide heads (dk or dv above 128, the kWide instantiations; the mLSTM of
+// xLSTM-350M runs at dk = dv = 256, G = 64): every kernel takes dv in
+// tiles of at most 128 columns (tile_width), a block one (g, dv tile), and
+// recomputes C B^T for each tile; C and B are never tiled, dk being the
+// depth of C B^T.  At L = 128 and d = 256 one bf16 stage of C, B and a V
+// tile takes 161 KB, so chunk_local keeps one stage where two do not fit
+// (local_stages), and its state summary walks dk's four 64-row wgmma tiles
+// two a warpgroup; chunk_apply holds C (64 KB), the y_intra tile and
+// S_prev's tile as bf16 hi and lo (128 KB), 226 KB, one block an SM.  The
+// float32 kernels stage C a panel of 16 rows at a time instead of whole.
+// At that shape chunk_local moves ~33.6 MB (~10 us at 3.35 TB/s) and
+// chunk_apply ~29.4 MB (~8.8 us); the 128 blocks of a prefill fill one wave
+// of 132 SMs.  Below 128 the kernels compile to the code of the designs
+// described next (kWide false: one tile, two stages, no panels).
 //
 // What bounds them, at the serving path's shape (G = 1792, L = 128,
 // dk = dv = 64, bf16): chunk_local reads 3 x 29 MB and writes 29 MB of
@@ -109,7 +124,11 @@
 namespace {
 
 constexpr int kMaxL = 128;
-constexpr int kMaxD = 128;
+constexpr int kMaxD = 256;
+// The widest dv tile, and the widest d the float32 kernels hold whole.
+constexpr int kTileD = 128;
+// Shared memory a block may use on sm_90 (227 KB).
+constexpr int kMaxSmem = 232448;
 
 using bf16 = __nv_bfloat16;
 
@@ -156,11 +175,13 @@ __host__ __device__ __forceinline__ LocalStage local_stage(int lp, int dkp,
   return st;
 }
 
-// Rows 0..lp-1 of a (L, d) bf16 matrix into a core-matrix tile of depth dp;
-// rows past L are zero-filled.  Eight neighbouring threads fill one
-// 128-byte core matrix, so a warp reads 8 rows x 64 contiguous bytes.
+// Columns 0..d-1 of rows 0..lp-1 of a bf16 matrix of L rows, `ld` elements
+// apart, into a core-matrix tile of depth dp; rows past L are zero-filled.
+// Eight neighbouring threads fill one 128-byte core matrix, so a warp reads
+// 8 rows x 64 contiguous bytes.
 __device__ __forceinline__ void load_rows(unsigned char* tile, const bf16* g,
-                                          int L, int lp, int d, int dp) {
+                                          int L, int lp, int d, int ld,
+                                          int dp) {
   const int chunks = d / 8;
   const bool pow2 = (chunks & (chunks - 1)) == 0;
   const int shift = __ffs(chunks) - 1;
@@ -171,7 +192,7 @@ __device__ __forceinline__ void load_rows(unsigned char* tile, const bf16* g,
     const int r = (pow2 ? rest >> shift : rest / chunks) * 8 + rr;
     const bool in = r < L;
     wgmma::cp_async16(tile + wgmma::cm_offset(r, c, dp),
-                      g + (long long)(in ? r : 0) * d + c * 8, in);
+                      g + (long long)(in ? r : 0) * ld + c * 8, in);
   }
 }
 
@@ -188,20 +209,21 @@ __device__ __forceinline__ void zero_cols(unsigned char* tile, int rows,
   }
 }
 
+// A stage of g's C, B, ca and the dv tile of V from column col0, wt wide.
 __device__ __forceinline__ void load_local_stage(
     unsigned char* st, const LocalStage& ly, const bf16* c, const bf16* b,
     const bf16* v, const float* ca, long long g, int L, int lp, int dk,
-    int dv, int dkp, int dvp) {
-  load_rows(st, c + g * L * dk, L, lp, dk, dkp);
-  load_rows(st + ly.b, b + g * L * dk, L, lp, dk, dkp);
-  load_rows(st + ly.v, v + g * L * dv, L, lp, dv, dvp);
+    int dv, int dkp, int dvp, int col0, int wt) {
+  load_rows(st, c + g * L * dk, L, lp, dk, dk, dkp);
+  load_rows(st + ly.b, b + g * L * dk, L, lp, dk, dk, dkp);
+  load_rows(st + ly.v, v + g * L * dv + col0, L, lp, wt, dv, dvp);
   // The depth padding, which cp.async never writes, anew each time: the
   // stage also passes y_intra out.
   if (dkp != dk) {
     zero_cols(st, lp, dk, dkp);
     zero_cols(st + ly.b, lp, dk, dkp);
   }
-  if (dvp != dv) zero_cols(st + ly.v, lp, dv, dvp);
+  if (dvp != wt) zero_cols(st + ly.v, lp, wt, dvp);
   const float* cag = ca + g * L;
   for (int i = threadIdx.x; i < lp; i += kThreads) {
     wgmma::cp_async4(st + ly.ca + 4 * i, cag + (i < L ? i : 0), i < L);
@@ -216,38 +238,46 @@ struct LocalMaps {
   CUtensorMap c, b, v, ca;
 };
 
-// Stage g's operands: by TMA (thread 0 arms the stage's barrier with the
-// stage's bytes and issues four copies) or by cp.async (every thread).
+// Stage g's operands with the dv tile of V from column col0, wt wide: by
+// TMA (thread 0 arms the stage's barrier with the stage's bytes and issues
+// four copies; the V box starts at the tile's column chunk) or by cp.async
+// (every thread).
 __device__ __forceinline__ void issue_local_stage(
     bool tma, uint64_t* bar, const LocalMaps& maps, unsigned char* st,
     const LocalStage& ly, const bf16* c, const bf16* b, const bf16* v,
-    const float* ca, int g, int L, int lp, int dk, int dv, int dkp,
-    int dvp) {
+    const float* ca, int g, int col0, int wt, int L, int lp, int dk, int dv,
+    int dkp, int dvp) {
   if (!tma) {
-    load_local_stage(st, ly, c, b, v, ca, g, L, lp, dk, dv, dkp, dvp);
+    load_local_stage(st, ly, c, b, v, ca, g, L, lp, dk, dv, dkp, dvp, col0,
+                     wt);
   } else if (threadIdx.x == 0) {
     wgmma::mbar_expect_tx(bar, ly.bytes);
     wgmma::tma_load_5d(st, &maps.c, bar, 0, 0, 0, 0, g);
     wgmma::tma_load_5d(st + ly.b, &maps.b, bar, 0, 0, 0, 0, g);
-    wgmma::tma_load_5d(st + ly.v, &maps.v, bar, 0, 0, 0, 0, g);
+    wgmma::tma_load_5d(st + ly.v, &maps.v, bar, 0, 0, col0 / 8, 0, g);
     wgmma::tma_load_2d(st + ly.ca, &maps.ca, bar, 0, g);
   }
 }
 
-template <int DVP>
+// A block walks work items with a ring of two stages.  kWide (dk or dv
+// above kTileD): an item is a (g, dv tile) pair, the tile tw columns wide
+// and DVP its padded width, and the ring has `stages` stages (one where
+// two do not fit in shared memory); else an item is a g, dv = tw.
+template <int DVP, bool kWide>
 __global__ void __launch_bounds__(kThreads, DVP <= 64 ? kLocalBlocks : 1)
 chunk_local_bf16_kernel(const __grid_constant__ LocalMaps maps, int tma,
-                        const bf16* __restrict__ c,
+                        int wide_stages, const bf16* __restrict__ c,
                         const bf16* __restrict__ b,
                         const bf16* __restrict__ v,
                         const float* __restrict__ ca, bf16* __restrict__ y,
-                        float* __restrict__ s, int G, int L, int dk,
-                        int dv) {
+                        float* __restrict__ s, int G, int L, int dk, int dv,
+                        int tw) {
   extern __shared__ __align__(128) unsigned char tiles[];
   const int lp = padded_rows(L);
   const int dkp = pad16(dk);
   const LocalStage ly = local_stage(lp, dkp, DVP);
-  float* w = reinterpret_cast<float*>(tiles + 2 * ly.bytes);   // kMaxL
+  const int stages = kWide ? wide_stages : 2;
+  float* w = reinterpret_cast<float*>(tiles + stages * ly.bytes);  // kMaxL
   uint64_t* bars = reinterpret_cast<uint64_t*>(w + kMaxL);   // TMA, a stage
 
   const int tid = threadIdx.x;
@@ -263,28 +293,43 @@ chunk_local_bf16_kernel(const __grid_constant__ LocalMaps maps, int tma,
   }
   __syncthreads();
 
-  int g = blockIdx.x;
-  if (g < G) {
-    issue_local_stage(tma, &bars[0], maps, tiles, ly, c, b, v, ca, g, L, lp,
+  const int n_tiles = kWide ? (dv + tw - 1) / tw : 1;
+  const int items = G * n_tiles;
+  // Work item i's g, its dv tile's first column and width.
+  auto g_of = [&](int i) { return kWide ? i / n_tiles : i; };
+  auto col0_of = [&](int i) { return kWide ? (i - g_of(i) * n_tiles) * tw : 0; };
+  auto wt_of = [&](int col0) { return kWide ? min(tw, dv - col0) : dv; };
+  int item = blockIdx.x;
+  if (item < items) {
+    issue_local_stage(tma, &bars[0], maps, tiles, ly, c, b, v, ca,
+                      g_of(item), col0_of(item), wt_of(col0_of(item)), L, lp,
                       dk, dv, dkp, DVP);
   }
   if (!tma) wgmma::cp_async_commit();
-  for (int it = 0; g < G; ++it, g += gridDim.x) {
-    unsigned char* st = tiles + (it & 1) * ly.bytes;
-    const int gn = g + gridDim.x;
-    if (gn < G) {
-      issue_local_stage(tma, &bars[(it + 1) & 1], maps,
-                        tiles + ((it + 1) & 1) * ly.bytes, ly, c, b, v, ca,
-                        gn, L, lp, dk, dv, dkp, DVP);
+  for (int it = 0; item < items; ++it, item += gridDim.x) {
+    const int cur = stages == 2 ? it & 1 : 0;
+    unsigned char* st = tiles + cur * ly.bytes;
+    const int next = item + gridDim.x;
+    if (stages == 2 && next < items) {
+      issue_local_stage(tma, &bars[cur ^ 1], maps, tiles + (cur ^ 1) * ly.bytes,
+                        ly, c, b, v, ca, g_of(next), col0_of(next),
+                        wt_of(col0_of(next)), L, lp, dk, dv, dkp, DVP);
     }
     if (tma) {
-      wgmma::mbar_wait(&bars[it & 1], (it >> 1) & 1);
+      wgmma::mbar_wait(&bars[cur], kWide ? (it / stages) & 1 : (it >> 1) & 1);
     } else {
       wgmma::cp_async_commit();
-      wgmma::cp_async_wait<1>();
+      if (stages == 2) {
+        wgmma::cp_async_wait<1>();
+      } else {
+        wgmma::cp_async_wait<0>();
+      }
       wgmma::fence_async_smem();
     }
     __syncthreads();
+    const int g = g_of(item);
+    const int col0 = col0_of(item);
+    const int wt = wt_of(col0);              // this tile's columns
 
     const unsigned char* ct = st;
     const unsigned char* bt = st + ly.b;
@@ -293,16 +338,17 @@ chunk_local_bf16_kernel(const __grid_constant__ LocalMaps maps, int tma,
     if (tid < kMaxL) w[tid] = tid < L ? expf(cas[L - 1] - cas[tid]) : 0.f;
     __syncthreads();
 
-    // State summary: rows 64 wg.. of dk, (B . w)^T V over t, a k-step of 16
-    // t at a time.
-    if (64 * wg < dk) {
+    // State summary: (B . w)^T V over t, a k-step of 16 t at a time, for
+    // the 64-row tiles of dk from 64 wg, every other one (dk = 256: two a
+    // warpgroup).
+    for (int mt = wg; 64 * mt < dk; mt += 2) {
       float acc[DVP / 2];
 #pragma unroll
       for (int i = 0; i < DVP / 2; ++i) {
         acc[i] = 0.f;
         wgmma::fence_operand(acc[i]);
       }
-      const int m0 = 64 * wg + 16 * warp;       // this warp's 16 rows of dk
+      const int m0 = 64 * mt + 16 * warp;       // this warp's 16 rows of dk
       const bool rows_in = m0 < dkp;
       const int blk = lane >> 3;                // ldmatrix block of this lane
       const int chunk = m0 / 8 + (blk & 1);
@@ -344,11 +390,11 @@ chunk_local_bf16_kernel(const __grid_constant__ LocalMaps maps, int tma,
       wgmma::wait_all();
 #pragma unroll
       for (int i = 0; i < DVP / 2; ++i) wgmma::fence_operand(acc[i]);
-      float* sg = s + (long long)g * dk * dv;
+      float* sg = s + (long long)g * dk * dv + col0;
 #pragma unroll
       for (int i = 0; i < DVP / 8; ++i) {
         const int col = 8 * i + q2;
-        if (col >= dv) continue;
+        if (col >= wt) continue;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int k = m0 + (lane >> 2) + 8 * h;
@@ -358,6 +404,7 @@ chunk_local_bf16_kernel(const __grid_constant__ LocalMaps maps, int tma,
           }
         }
       }
+      if (!kWide) break;   // dk <= 128: one tile a warpgroup
     }
 
     // y_intra: this warpgroup's half against the key tiles at or below it.
@@ -430,12 +477,12 @@ chunk_local_bf16_kernel(const __grid_constant__ LocalMaps maps, int tma,
     // fragments' own 4-byte stores each fill half a 32-byte sector (the
     // kernel took 0.088 ms with them, 0.076 without, on an H100).
     __syncthreads();   // every product has read this stage
-    const int ypitch = dv * 2 + 16;
+    const int ypitch = wt * 2 + 16;
     if (y_rows) {
 #pragma unroll
       for (int i = 0; i < DVP / 8; ++i) {
         const int col = 8 * i + q2;
-        if (col >= dv) continue;
+        if (col >= wt) continue;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int row = row0 + 8 * h;
@@ -447,46 +494,56 @@ chunk_local_bf16_kernel(const __grid_constant__ LocalMaps maps, int tma,
       }
     }
     __syncthreads();
-    const int ychunks = dv / 8;
-    bf16* yg = y + (long long)g * L * dv;
+    const int ychunks = wt / 8;
+    bf16* yg = y + (long long)g * L * dv + col0;
     for (int i = tid; i < L * ychunks; i += kThreads) {
       const int r = i / ychunks, cc = i - r * ychunks;
-      *reinterpret_cast<uint4*>(yg + (long long)i * 8) =
+      *reinterpret_cast<uint4*>(yg + (kWide ? (long long)r * dv + cc * 8
+                                            : (long long)i * 8)) =
           *reinterpret_cast<const uint4*>(st + r * ypitch + cc * 16);
     }
-    __syncthreads();   // this stage and w are free for the next g
+    __syncthreads();   // this stage and w are free for the next item
+    if (stages == 1 && next < items) {
+      issue_local_stage(tma, &bars[0], maps, tiles, ly, c, b, v, ca,
+                        g_of(next), col0_of(next), wt_of(col0_of(next)), L,
+                        lp, dk, dv, dkp, DVP);
+    }
   }
 }
 
-// chunk_apply's shared memory: the C tile (lp x dkp), y_intra as it lies
-// with rows padded by 16 bytes, S_prev's hi and lo tiles (dkp x dvp,
-// N-major).
+// chunk_apply's shared memory: the C tile (lp x dkp), the y_intra tile
+// (tw columns) as it lies with rows padded by 16 bytes, S_prev's hi and lo
+// tiles (dkp x dvp, N-major).
 struct ApplySmem {
   int y, shi, slo, bytes;
 };
 __host__ __device__ __forceinline__ ApplySmem apply_smem(int L, int lp,
-                                                         int dkp, int dv,
+                                                         int dkp, int tw,
                                                          int dvp) {
   ApplySmem sm;
   sm.y = lp * dkp * 2;
-  sm.shi = sm.y + L * (dv * 2 + 16);
+  sm.shi = sm.y + L * (tw * 2 + 16);
   sm.slo = sm.shi + dkp * dvp * 2;
   sm.bytes = sm.slo + dkp * dvp * 2;
   return sm;
 }
 
-template <int DVP>
+// A block a g; kWide: a block a (g, dv tile), blockIdx.y the tile, tw
+// columns apart.
+template <int DVP, bool kWide>
 __global__ void __launch_bounds__(kThreads, DVP <= 64 ? kApplyBlocks : 1)
 chunk_apply_bf16_kernel(const bf16* __restrict__ c,
                         const float* __restrict__ ca,
                         const bf16* __restrict__ yin,
                         const float* __restrict__ sp, bf16* __restrict__ out,
-                        int L, int dk, int dv) {
+                        int L, int dk, int dv, int tw) {
   extern __shared__ __align__(128) unsigned char tiles[];
   const int lp = padded_rows(L);
   const int dkp = pad16(dk);
-  const ApplySmem sm = apply_smem(L, lp, dkp, dv, DVP);
-  const int ypitch = dv * 2 + 16;
+  const ApplySmem sm = apply_smem(L, lp, dkp, tw, DVP);
+  const int col0 = kWide ? blockIdx.y * tw : 0;
+  const int wt = kWide ? min(tw, dv - col0) : dv;   // this tile's columns
+  const int ypitch = wt * 2 + 16;
   unsigned char* ys = tiles + sm.y;
   unsigned char* shi = tiles + sm.shi;
   unsigned char* slo = tiles + sm.slo;
@@ -499,12 +556,15 @@ chunk_apply_bf16_kernel(const bf16* __restrict__ c,
   const int q2 = 2 * (lane & 3);
   const int row0 = 64 * wg + 16 * warp + (lane >> 2);   // and row0 + 8
 
-  load_rows(tiles, c + g * L * dk, L, lp, dk, dkp);
-  const int ychunks = dv / 8;
-  const bf16* yg = yin + g * L * dv;
+  load_rows(tiles, c + g * L * dk, L, lp, dk, dk, dkp);
+  const int ychunks = wt / 8;
+  const bf16* yg = yin + g * L * dv + col0;
   for (int i = tid; i < L * ychunks; i += kThreads) {
     const int r = i / ychunks, cc = i - r * ychunks;
-    wgmma::cp_async16(ys + r * ypitch + cc * 16, yg + (long long)i * 8, true);
+    wgmma::cp_async16(ys + r * ypitch + cc * 16,
+                      yg + (kWide ? (long long)r * dv + cc * 8
+                                  : (long long)i * 8),
+                      true);
   }
   wgmma::cp_async_commit();
   if (dkp != dk) zero_cols(tiles, lp, dk, dkp);
@@ -512,8 +572,8 @@ chunk_apply_bf16_kernel(const bf16* __restrict__ c,
   // S_prev (dk x dv float32) as bf16 hi and lo tiles, rows k along the
   // product's depth: eight neighbouring threads take 8 rows k of one
   // 4-column group (a core matrix's rows), a warp 8 rows x 64 bytes.
-  const float* spg = sp + g * dk * dv;
-  const int quads = dv / 4;
+  const float* spg = sp + g * dk * dv + col0;
+  const int quads = wt / 4;
   for (int i = tid; i < dk * quads; i += kThreads) {
     const int rr = i & 7;
     const int rest = i >> 3;
@@ -527,10 +587,10 @@ chunk_apply_bf16_kernel(const bf16* __restrict__ c,
     *reinterpret_cast<uint2*>(shi + off) = h;
     *reinterpret_cast<uint2*>(slo + off) = l;
   }
-  // Their padding: rows dk..dkp-1 and columns dv..dvp-1.
+  // Their padding: rows dk..dkp-1 and columns wt..dvp-1.
   for (int i = tid; i < dkp * (DVP / 8); i += kThreads) {
     const int k = i / (DVP / 8), cc = i % (DVP / 8);
-    if (k >= dk || cc >= dv / 8) {
+    if (k >= dk || cc >= wt / 8) {
       const int off = wgmma::cm_offset(k, cc, DVP);
       *reinterpret_cast<uint4*>(shi + off) = make_uint4(0u, 0u, 0u, 0u);
       *reinterpret_cast<uint4*>(slo + off) = make_uint4(0u, 0u, 0u, 0u);
@@ -555,7 +615,7 @@ chunk_apply_bf16_kernel(const bf16* __restrict__ c,
     const int ksteps = dkp / 16;
     uint32_t hi[2][4], lo[2][4];
 #pragma unroll
-    for (int ks = 0; ks < kMaxD / 16; ++ks) {
+    for (int ks = 0; ks < (kWide ? kMaxD : kTileD) / 16; ++ks) {
       if (ks < ksteps) {
         const int set = ks & 1;
         if (ks >= 2) wgmma::wait<1>();   // step ks - 2 read this set
@@ -588,7 +648,7 @@ chunk_apply_bf16_kernel(const bf16* __restrict__ c,
 #pragma unroll
     for (int i = 0; i < DVP / 8; ++i) {
       const int col = 8 * i + q2;
-      if (col >= dv) continue;
+      if (col >= wt) continue;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = row0 + 8 * h;
@@ -603,10 +663,11 @@ chunk_apply_bf16_kernel(const bf16* __restrict__ c,
     }
   }
   __syncthreads();
-  bf16* og = out + g * L * dv;
+  bf16* og = out + g * L * dv + col0;
   for (int i = tid; i < L * ychunks; i += kThreads) {
     const int r = i / ychunks, cc = i - r * ychunks;
-    *reinterpret_cast<uint4*>(og + (long long)i * 8) =
+    *reinterpret_cast<uint4*>(og + (kWide ? (long long)r * dv + cc * 8
+                                          : (long long)i * 8)) =
         *reinterpret_cast<const uint4*>(ys + r * ypitch + cc * 16);
   }
 }
@@ -683,62 +744,80 @@ bool encode_local_maps(LocalMaps* maps, const void* c, const void* b,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DVP>
+// The columns of a dv tile: dv itself up to kTileD, else dv split evenly
+// into ceil(dv / kTileD) tiles, rounded up to a multiple of 8.
+int tile_width(int dv) {
+  const int tiles = (dv + kTileD - 1) / kTileD;
+  return ((dv + tiles - 1) / tiles + 7) & ~7;
+}
+
+// chunk_local's stages: two where they fit in shared memory, else one.
+int local_stages(int stage_bytes) {
+  return 2 * stage_bytes + kMaxL * 4 + 2 * 8 <= kMaxSmem ? 2 : 1;
+}
+
+template <int DVP, bool kWide>
 int launch_local_bf16(const void* c, const void* b, const void* v,
                       const void* ca, void* y, void* s, int G, int L, int dk,
-                      int dv, cudaStream_t st) {
-  auto kernel = chunk_local_bf16_kernel<DVP>;
+                      int dv, int tw, cudaStream_t st) {
+  auto kernel = chunk_local_bf16_kernel<DVP, kWide>;
   LocalMaps maps = {};
   const bool tma = kLocalTma && L % 8 == 0;
   if (tma && !encode_local_maps(&maps, c, b, v, ca, G, L, dk, dv,
                                 padded_rows(L), pad16(dk), DVP)) {
     return (int)cudaErrorNotSupported;
   }
-  const int smem = 2 * local_stage(padded_rows(L), pad16(dk), DVP).bytes +
-                   kMaxL * 4 + 2 * 8;
+  const int stage = local_stage(padded_rows(L), pad16(dk), DVP).bytes;
+  const int stages = kWide ? local_stages(stage) : 2;
+  const int smem = stages * stage + kMaxL * 4 + 2 * 8;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   int grid = 0;
   const int err = resident_grid(kernel, smem, &grid);
   if (err) return err;
-  grid = grid < G ? grid : G;
+  const long long items = (long long)G * ((dv + tw - 1) / tw);
+  grid = grid < items ? grid : (int)items;
   kernel<<<grid, kThreads, smem, st>>>(
-      maps, tma ? 1 : 0, static_cast<const bf16*>(c),
+      maps, tma ? 1 : 0, stages, static_cast<const bf16*>(c),
       static_cast<const bf16*>(b),
       static_cast<const bf16*>(v), static_cast<const float*>(ca),
-      static_cast<bf16*>(y), static_cast<float*>(s), G, L, dk, dv);
+      static_cast<bf16*>(y), static_cast<float*>(s), G, L, dk, dv, tw);
   return (int)cudaGetLastError();
 }
 
-template <int DVP>
+template <int DVP, bool kWide>
 int launch_apply_bf16(const void* c, const void* ca, const void* y_intra,
                       const void* s_prev, void* out, int G, int L, int dk,
-                      int dv, cudaStream_t st) {
-  auto kernel = chunk_apply_bf16_kernel<DVP>;
-  const int smem = apply_smem(L, padded_rows(L), pad16(dk), dv, DVP).bytes;
+                      int dv, int tw, cudaStream_t st) {
+  auto kernel = chunk_apply_bf16_kernel<DVP, kWide>;
+  const int smem = apply_smem(L, padded_rows(L), pad16(dk), tw, DVP).bytes;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<G, kThreads, smem, st>>>(
+  const dim3 grid(G, (dv + tw - 1) / tw);
+  kernel<<<grid, kThreads, smem, st>>>(
       static_cast<const bf16*>(c), static_cast<const float*>(ca),
       static_cast<const bf16*>(y_intra), static_cast<const float*>(s_prev),
-      static_cast<bf16*>(out), L, dk, dv);
+      static_cast<bf16*>(out), L, dk, dv, tw);
   return (int)cudaGetLastError();
 }
 
-// The bf16 launchers by dv's padding.
-#define CHUNK_SCAN_BY_DVP(fn, dvp, ...)          \
-  switch ((dvp) / 16) {                          \
-    case 1: return fn<16>(__VA_ARGS__);          \
-    case 2: return fn<32>(__VA_ARGS__);          \
-    case 3: return fn<48>(__VA_ARGS__);          \
-    case 4: return fn<64>(__VA_ARGS__);          \
-    case 5: return fn<80>(__VA_ARGS__);          \
-    case 6: return fn<96>(__VA_ARGS__);          \
-    case 7: return fn<112>(__VA_ARGS__);         \
-    case 8: return fn<128>(__VA_ARGS__);         \
-    default: return (int)cudaErrorInvalidValue;  \
+// The bf16 launchers by the dv tile's padding, wide or not.
+#define CHUNK_SCAN_DVP_CASE(n, fn, wide, ...)                         \
+  case n / 16:                                                        \
+    return wide ? fn<n, true>(__VA_ARGS__) : fn<n, false>(__VA_ARGS__);
+#define CHUNK_SCAN_BY_DVP(fn, wide, dvp, ...)          \
+  switch ((dvp) / 16) {                                \
+    CHUNK_SCAN_DVP_CASE(16, fn, wide, __VA_ARGS__)     \
+    CHUNK_SCAN_DVP_CASE(32, fn, wide, __VA_ARGS__)     \
+    CHUNK_SCAN_DVP_CASE(48, fn, wide, __VA_ARGS__)     \
+    CHUNK_SCAN_DVP_CASE(64, fn, wide, __VA_ARGS__)     \
+    CHUNK_SCAN_DVP_CASE(80, fn, wide, __VA_ARGS__)     \
+    CHUNK_SCAN_DVP_CASE(96, fn, wide, __VA_ARGS__)     \
+    CHUNK_SCAN_DVP_CASE(112, fn, wide, __VA_ARGS__)    \
+    CHUNK_SCAN_DVP_CASE(128, fn, wide, __VA_ARGS__)    \
+    default: return (int)cudaErrorInvalidValue;        \
   }
 
 // ---------------------------------------------------------------------------
@@ -748,29 +827,40 @@ int launch_apply_bf16(const void* c, const void* ca, const void* y_intra,
 constexpr int kF32Threads = 256;
 constexpr int kPanel = 16;
 
-size_t local_smem_bytes(int L, int dk, int dv) {
+// Wide heads, dk or dv above kTileD: dv tiled, chunk_local's ring of
+// stages sized to shared memory, the float32 kernels' C staged a panel at
+// a time (the kWide kernels).
+bool wide(int dk, int dv) { return dk > kTileD || dv > kTileD; }
+
+size_t local_smem_bytes(int L, int dk, int tw, bool wide) {
   const size_t ldk = dk + 1;
+  return sizeof(float) * (((wide ? kPanel : L) + L) * ldk + (size_t)L * tw +
+                          2 * (size_t)L + kPanel * (L + 1));
+}
+
+size_t apply_smem_bytes(int L, int dk, int tw, bool wide) {
   return sizeof(float) *
-         (2 * L * ldk + (size_t)L * dv + 2 * (size_t)L + kPanel * (L + 1));
+         ((size_t)(wide ? kPanel : L) * (dk + 1) + (size_t)dk * tw);
 }
 
-size_t apply_smem_bytes(int L, int dk, int dv) {
-  return sizeof(float) * ((size_t)L * (dk + 1) + (size_t)dk * dv);
-}
-
+// A block a (g, dv tile): blockIdx.x is g, blockIdx.y the tile, tw columns
+// apart (tw = dv: one tile).
+template <bool kWide>
 __global__ void __launch_bounds__(kF32Threads)
 chunk_local_f32_kernel(const float* __restrict__ c,
                        const float* __restrict__ b,
                        const float* __restrict__ v,
                        const float* __restrict__ ca, float* __restrict__ y,
-                       float* __restrict__ s, int L, int dk, int dv) {
+                       float* __restrict__ s, int L, int dk, int dv, int tw) {
   extern __shared__ float smem[];
   const int ldk = dk + 1;
   const int lp = L + 1;
-  float* cs = smem;               // L x ldk
-  float* bs = cs + L * ldk;       // L x ldk
-  float* vs = bs + L * ldk;       // L x dv
-  float* cas = vs + L * dv;       // L
+  const int col0 = kWide ? blockIdx.y * tw : 0;
+  const int wt = kWide ? min(tw, dv - col0) : dv;   // this tile's columns
+  float* cs = smem;               // L (kWide: kPanel) x ldk
+  float* bs = cs + (kWide ? kPanel : L) * ldk;   // L x ldk
+  float* vs = bs + L * ldk;       // L x wt
+  float* cas = vs + L * wt;       // L
   float* w = cas + L;             // L: exp(ca[L-1] - ca[t])
   float* ps = w + L;              // kPanel x lp: masked scores of a panel
 
@@ -778,13 +868,20 @@ chunk_local_f32_kernel(const float* __restrict__ c,
   const int tid = threadIdx.x;
   const float* cg = c + g * L * dk;
   const float* bg = b + g * L * dk;
-  const float* vg = v + g * L * dv;
+  const float* vg = v + g * L * dv + col0;
   for (int i = tid; i < L * dk; i += kF32Threads) {
     const int t = i / dk, k = i - t * dk;
-    cs[t * ldk + k] = cg[i];
+    if (!kWide) cs[t * ldk + k] = cg[i];
     bs[t * ldk + k] = bg[i];
   }
-  for (int i = tid; i < L * dv; i += kF32Threads) vs[i] = vg[i];
+  for (int i = tid; i < L * wt; i += kF32Threads) {
+    if (kWide) {
+      const int t = i / wt, j = i - t * wt;
+      vs[i] = vg[(long long)t * dv + j];
+    } else {
+      vs[i] = vg[i];
+    }
+  }
   for (int i = tid; i < L; i += kF32Threads) cas[i] = ca[g * L + i];
   __syncthreads();
   for (int i = tid; i < L; i += kF32Threads) w[i] = expf(cas[L - 1] - cas[i]);
@@ -795,19 +892,19 @@ chunk_local_f32_kernel(const float* __restrict__ c,
   {
     const int col = tid % 64;
     const int kr = tid / 64;                 // 0..3
-    float* sg = s + g * dk * dv;
+    float* sg = s + g * dk * dv + col0;
     for (int k0 = 0; k0 < dk; k0 += 32) {
       float acc[8][2];
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = 0.f;
       for (int t = 0; t < L; ++t) {
-        const float wt = w[t];
-        const float v0 = col < dv ? vs[t * dv + col] : 0.f;
-        const float v1 = col + 64 < dv ? vs[t * dv + col + 64] : 0.f;
+        const float wgt = w[t];
+        const float v0 = col < wt ? vs[t * wt + col] : 0.f;
+        const float v1 = col + 64 < wt ? vs[t * wt + col + 64] : 0.f;
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int k = min(k0 + kr + 4 * j, dk - 1);
-          const float bw = bs[t * ldk + k] * wt;
+          const float bw = bs[t * ldk + k] * wgt;
           acc[j][0] = fmaf(bw, v0, acc[j][0]);
           acc[j][1] = fmaf(bw, v1, acc[j][1]);
         }
@@ -816,17 +913,25 @@ chunk_local_f32_kernel(const float* __restrict__ c,
       for (int j = 0; j < 8; ++j) {
         const int k = k0 + kr + 4 * j;
         if (k < dk) {
-          if (col < dv) sg[k * dv + col] = acc[j][0];
-          if (col + 64 < dv) sg[k * dv + col + 64] = acc[j][1];
+          if (col < wt) sg[k * dv + col] = acc[j][0];
+          if (col + 64 < wt) sg[k * dv + col + 64] = acc[j][1];
         }
       }
     }
   }
 
   // y_intra, kPanel rows at a time.
-  float* yg = y + g * L * dv;
+  float* yg = y + g * L * dv + col0;
   for (int p0 = 0; p0 < L; p0 += kPanel) {
     const int smax = min(p0 + kPanel, L);    // keys a panel row can see
+    const int c0 = kWide ? p0 : 0;           // cs's first row
+    if (kWide) {
+      for (int i = tid; i < (smax - p0) * dk; i += kF32Threads) {
+        const int t = i / dk, k = i - t * dk;
+        cs[t * ldk + k] = cg[(long long)(p0 + t) * dk + k];
+      }
+      __syncthreads();
+    }
     {
       // Scores: thread (key si, rows p0 + r0 + 2j).
       const int si = tid % kMaxL;
@@ -840,7 +945,7 @@ chunk_local_f32_kernel(const float* __restrict__ c,
 #pragma unroll
           for (int j = 0; j < 8; ++j) {
             const int r = min(p0 + r0 + 2 * j, L - 1);
-            acc[j] = fmaf(cs[r * ldk + k], bk, acc[j]);
+            acc[j] = fmaf(cs[(r - c0) * ldk + k], bk, acc[j]);
           }
         }
 #pragma unroll
@@ -861,8 +966,8 @@ chunk_local_f32_kernel(const float* __restrict__ c,
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[j][0] = acc[j][1] = 0.f;
       for (int si = 0; si < smax; ++si) {
-        const float v0 = col < dv ? vs[si * dv + col] : 0.f;
-        const float v1 = col + 64 < dv ? vs[si * dv + col + 64] : 0.f;
+        const float v0 = col < wt ? vs[si * wt + col] : 0.f;
+        const float v1 = col + 64 < wt ? vs[si * wt + col + 64] : 0.f;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const float pr = ps[(r0 + 4 * j) * lp + si];
@@ -874,8 +979,8 @@ chunk_local_f32_kernel(const float* __restrict__ c,
       for (int j = 0; j < 4; ++j) {
         const int r = p0 + r0 + 4 * j;
         if (r < L) {
-          if (col < dv) yg[r * dv + col] = acc[j][0];
-          if (col + 64 < dv) yg[r * dv + col + 64] = acc[j][1];
+          if (col < wt) yg[r * dv + col] = acc[j][0];
+          if (col + 64 < wt) yg[r * dv + col + 64] = acc[j][1];
         }
       }
     }
@@ -883,44 +988,66 @@ chunk_local_f32_kernel(const float* __restrict__ c,
   }
 }
 
+// A block a (g, dv tile), as chunk_local_f32_kernel.
+template <bool kWide>
 __global__ void __launch_bounds__(kF32Threads)
 chunk_apply_f32_kernel(const float* __restrict__ c,
                        const float* __restrict__ ca,
                        const float* __restrict__ yin,
                        const float* __restrict__ sp, float* __restrict__ out,
-                       int L, int dk, int dv) {
+                       int L, int dk, int dv, int tw) {
   extern __shared__ float smem[];
   const int ldk = dk + 1;
-  float* cw = smem;               // L x ldk: C . exp(ca)
-  float* sps = cw + L * ldk;      // dk x dv: S_prev
+  const int col0 = kWide ? blockIdx.y * tw : 0;
+  const int wt = kWide ? min(tw, dv - col0) : dv;   // this tile's columns
+  float* cw = smem;               // L (kWide: kPanel) x ldk: C . exp(ca)
+  float* sps = cw + (kWide ? kPanel : L) * ldk;   // dk x wt: S_prev
 
   const long long g = blockIdx.x;
   const int tid = threadIdx.x;
   const float* cg = c + g * L * dk;
   const float* cag = ca + g * L;
-  for (int i = tid; i < L * dk; i += kF32Threads) {
-    const int t = i / dk, k = i - t * dk;
-    cw[t * ldk + k] = cg[i] * expf(cag[t]);
+  if (!kWide) {
+    for (int i = tid; i < L * dk; i += kF32Threads) {
+      const int t = i / dk, k = i - t * dk;
+      cw[t * ldk + k] = cg[i] * expf(cag[t]);
+    }
   }
-  const float* spg = sp + g * dk * dv;
-  for (int i = tid; i < dk * dv; i += kF32Threads) sps[i] = spg[i];
+  const float* spg = sp + g * dk * dv + col0;
+  for (int i = tid; i < dk * wt; i += kF32Threads) {
+    if (kWide) {
+      const int k = i / wt, j = i - k * wt;
+      sps[i] = spg[(long long)k * dv + j];
+    } else {
+      sps[i] = spg[i];
+    }
+  }
   __syncthreads();
 
   const int col = tid % 64;
   const int r0 = tid / 64;                   // 0..3
-  const float* yg = yin + g * L * dv;
-  float* og = out + g * L * dv;
+  const float* yg = yin + g * L * dv + col0;
+  float* og = out + g * L * dv + col0;
   for (int p0 = 0; p0 < L; p0 += kPanel) {
+    const int c0 = kWide ? p0 : 0;           // cw's first row
+    if (kWide) {
+      const int rows = min(kPanel, L - p0);
+      for (int i = tid; i < rows * dk; i += kF32Threads) {
+        const int t = i / dk, k = i - t * dk;
+        cw[t * ldk + k] = cg[(long long)(p0 + t) * dk + k] * expf(cag[p0 + t]);
+      }
+      __syncthreads();
+    }
     float acc[4][2];
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[j][0] = acc[j][1] = 0.f;
     for (int k = 0; k < dk; ++k) {
-      const float s0 = col < dv ? sps[k * dv + col] : 0.f;
-      const float s1 = col + 64 < dv ? sps[k * dv + col + 64] : 0.f;
+      const float s0 = col < wt ? sps[k * wt + col] : 0.f;
+      const float s1 = col + 64 < wt ? sps[k * wt + col + 64] : 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int r = min(p0 + r0 + 4 * j, L - 1);
-        const float cv = cw[r * ldk + k];
+        const float cv = cw[(r - c0) * ldk + k];
         acc[j][0] = fmaf(cv, s0, acc[j][0]);
         acc[j][1] = fmaf(cv, s1, acc[j][1]);
       }
@@ -929,16 +1056,17 @@ chunk_apply_f32_kernel(const float* __restrict__ c,
     for (int j = 0; j < 4; ++j) {
       const int r = p0 + r0 + 4 * j;
       if (r < L) {
-        if (col < dv) {
+        if (col < wt) {
           const int at = r * dv + col;
           og[at] = yg[at] + acc[j][0];
         }
-        if (col + 64 < dv) {
+        if (col + 64 < wt) {
           const int at = r * dv + col + 64;
           og[at] = yg[at] + acc[j][1];
         }
       }
     }
+    if (kWide) __syncthreads();   // every thread has read this panel of cw
   }
 }
 
@@ -948,11 +1076,12 @@ bool shape_ok(int g, int L, int dk, int dv) {
 }
 
 template <typename K, typename... Args>
-int launch_f32(K kernel, size_t smem, int g, cudaStream_t st, Args... args) {
+int launch_f32(K kernel, size_t smem, dim3 grid, cudaStream_t st,
+               Args... args) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<g, kF32Threads, smem, st>>>(args...);
+  kernel<<<grid, kF32Threads, smem, st>>>(args...);
   return (int)cudaGetLastError();
 }
 
@@ -961,23 +1090,28 @@ int launch_f32(K kernel, size_t smem, int g, cudaStream_t st, Args... args) {
 // dtype: 0 float32, 1 bfloat16 (c, b, v and y); ca (g, L) and s (g, dk, dv)
 // float32; all contiguous, and 16-byte aligned for bfloat16.  Returns a
 // cudaError_t, or cudaErrorInvalidValue for a shape outside L <= 128, dk,
-// dv in 8..128 and multiples of 8.
+// dv in 8..256 and multiples of 8.
 extern "C" int chunk_local_launch(int dtype, const void* c, const void* b,
                                   const void* v, const void* ca, void* y,
                                   void* s, int g, int L, int dk, int dv,
                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!shape_ok(g, L, dk, dv)) return (int)cudaErrorInvalidValue;
+  const int tw = tile_width(dv);
   if (dtype == 0) {
+    const bool w = wide(dk, dv);
+    const dim3 grid(g, (dv + tw - 1) / tw);
+    const auto kernel = w ? chunk_local_f32_kernel<true>
+                          : chunk_local_f32_kernel<false>;
     return launch_f32(
-        chunk_local_f32_kernel, local_smem_bytes(L, dk, dv), g, st,
+        kernel, local_smem_bytes(L, dk, tw, w), grid, st,
         static_cast<const float*>(c), static_cast<const float*>(b),
         static_cast<const float*>(v), static_cast<const float*>(ca),
-        static_cast<float*>(y), static_cast<float*>(s), L, dk, dv);
+        static_cast<float*>(y), static_cast<float*>(s), L, dk, dv, tw);
   }
   if (dtype == 1) {
-    CHUNK_SCAN_BY_DVP(launch_local_bf16, pad16(dv), c, b, v, ca, y, s, g, L,
-                      dk, dv, st);
+    CHUNK_SCAN_BY_DVP(launch_local_bf16, wide(dk, dv), pad16(tw), c, b, v,
+                      ca, y, s, g, L, dk, dv, tw, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -990,16 +1124,21 @@ extern "C" int chunk_apply_launch(int dtype, const void* c, const void* ca,
                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!shape_ok(g, L, dk, dv)) return (int)cudaErrorInvalidValue;
+  const int tw = tile_width(dv);
   if (dtype == 0) {
+    const bool w = wide(dk, dv);
+    const dim3 grid(g, (dv + tw - 1) / tw);
+    const auto kernel = w ? chunk_apply_f32_kernel<true>
+                          : chunk_apply_f32_kernel<false>;
     return launch_f32(
-        chunk_apply_f32_kernel, apply_smem_bytes(L, dk, dv), g, st,
+        kernel, apply_smem_bytes(L, dk, tw, w), grid, st,
         static_cast<const float*>(c), static_cast<const float*>(ca),
         static_cast<const float*>(y_intra), static_cast<const float*>(s_prev),
-        static_cast<float*>(out), L, dk, dv);
+        static_cast<float*>(out), L, dk, dv, tw);
   }
   if (dtype == 1) {
-    CHUNK_SCAN_BY_DVP(launch_apply_bf16, pad16(dv), c, ca, y_intra, s_prev,
-                      out, g, L, dk, dv, st);
+    CHUNK_SCAN_BY_DVP(launch_apply_bf16, wide(dk, dv), pad16(tw), c, ca,
+                      y_intra, s_prev, out, g, L, dk, dv, tw, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -10,11 +10,11 @@ together; finished sequences stop collecting output).  Greedy sampling.
 registry's configs keep the reference's ``attn_backend="xla"`` and
 ``ssm_backend="xla"``, so the kernels run only when a caller passes a config
 with ``"pallas"`` backends, e.g.
-``acfg=dataclasses.replace(get_config("zamba2-7b"), attn_backend="pallas",
+``acfg=dataclasses.replace(get_config("qwen3-32b"), attn_backend="pallas",
 ssm_backend="pallas")``.
 
 Usage:
-  python -m repro_torch.launch.serve --arch zamba2-7b --smoke --requests 4
+  python -m repro_torch.launch.serve --arch xlstm-350m --smoke --requests 4
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ class Request:
 
 @dataclasses.dataclass
 class ServeConfig:
-    arch: str = "zamba2-7b"
+    arch: str = "xlstm-350m"
     smoke: bool = True
     max_batch: int = 4
     max_len: int = 512
@@ -158,7 +158,7 @@ class Server:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="zamba2-7b")
+    ap.add_argument("--arch", default="xlstm-350m")
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")

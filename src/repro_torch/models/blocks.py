@@ -1,9 +1,9 @@
 """Block assembly: pre-norm residual blocks of each kind + state plumbing
 (port of ``repro/models/blocks.py``).
 
-Ported kinds: ``attn``, ``shared_attn`` and ``mamba2``.  ``moe`` (and
-``moe.py``), ``mlstm``, ``slstm`` and cross-attention (``xattn``) come in
-later slices (``ROADMAP.md`` Queue 1, the LM configurations and block
+Ported kinds: ``attn``, ``shared_attn``, ``mamba2``, ``mlstm`` and
+``slstm``.  ``moe`` (and ``moe.py``) and cross-attention (``xattn``) come
+in later slices (``ROADMAP.md`` Queue 1, the LM configurations and block
 kinds) and raise until then.
 """
 
@@ -28,9 +28,18 @@ from .ssm import (
     mamba2_init,
     mamba2_prefill,
     mamba2_state_init,
+    mlstm_apply,
+    mlstm_decode,
+    mlstm_init,
+    mlstm_prefill,
+    mlstm_state_init,
+    slstm_apply,
+    slstm_decode,
+    slstm_init,
+    slstm_state_init,
 )
 
-_UNPORTED_KINDS = ("moe", "mlstm", "slstm")
+_UNPORTED_KINDS = ("moe",)
 
 
 def _not_ported(what: str):
@@ -51,9 +60,11 @@ def block_init(gen, cfg: ArchConfig, kind: str, *, cross: bool = False):
             "ln2": rmsnorm_init(d, cfg.pdtype, gen.device),
             "mlp": swiglu_init(gen, d, cfg.d_ff, cfg.pdtype),
         }
-    if kind == "mamba2":
+    mixer_init = {"mamba2": mamba2_init, "mlstm": mlstm_init,
+                  "slstm": slstm_init}.get(kind)
+    if mixer_init is not None:
         return {"ln1": rmsnorm_init(d, cfg.pdtype, gen.device),
-                "mixer": mamba2_init(gen, cfg)}
+                "mixer": mixer_init(gen, cfg)}
     if kind in _UNPORTED_KINDS:
         raise _not_ported(f"the {kind!r} block")
     raise ValueError(f"unknown block kind {kind!r}")
@@ -66,6 +77,10 @@ def block_state_init(cfg: ArchConfig, kind: str, batch: int, max_len: int,
         return init_kv_cache(cfg, batch, max_len, device=device)
     if kind == "mamba2":
         return mamba2_state_init(cfg, batch, device=device)
+    if kind == "mlstm":
+        return mlstm_state_init(cfg, batch, device=device)
+    if kind == "slstm":
+        return slstm_state_init(cfg, batch, device=device)
     if kind in _UNPORTED_KINDS:
         raise _not_ported(f"the {kind!r} block")
     raise ValueError(kind)
@@ -144,6 +159,25 @@ def block_residual(
             y, new_state = mamba2_prefill(p["mixer"], cfg, h, state)
         else:
             y, new_state = mamba2_decode(p["mixer"], cfg, h, state)
+        return x, y, new_state, aux
+    if kind == "mlstm":
+        h = _norm(p["ln1"], cfg, x, norm_in)
+        if mode == "train":
+            y, new_state = mlstm_apply(p["mixer"], cfg, h, seq_axes=seq_axes), None
+        elif mode == "prefill":
+            y, new_state = mlstm_prefill(p["mixer"], cfg, h, state)
+        else:
+            y, new_state = mlstm_decode(p["mixer"], cfg, h, state)
+        return x, y, new_state, aux
+    if kind == "slstm":
+        h = _norm(p["ln1"], cfg, x, norm_in)
+        if mode == "train":
+            y, new_state = slstm_apply(p["mixer"], cfg, h), None
+        elif mode == "prefill":
+            y, new_state = slstm_apply(p["mixer"], cfg, h, None,
+                                       return_state=True)
+        else:
+            y, new_state = slstm_decode(p["mixer"], cfg, h, state)
         return x, y, new_state, aux
     if kind in _UNPORTED_KINDS:
         raise _not_ported(f"the {kind!r} block")

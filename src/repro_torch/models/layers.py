@@ -3,31 +3,93 @@
 
 Inits draw from a ``torch.Generator`` and allocate on its device; they give
 other numbers than the reference's ``jax.random`` keys, so the tests carry
-the reference's parameters across (``interop.params_from_numpy``).  The
-reference's ``shardctx`` constraints are no-ops without a mesh and are
-dropped here.  ``chunked_cross_entropy`` and ``softmax_cross_entropy``
-belong to training and come with it (``ROADMAP.md``).
+the reference's parameters across (``interop.params_from_numpy``).  Every
+init helper takes its parameters' storage from :func:`param` and draws
+into it in float32 pieces (:func:`normal_param`), so no whole-matrix
+float32 copy lives beside the weights; :func:`params_into` hands that
+storage out from tensors the caller made (``lm.init_params`` fills its
+stacked leaves a superblock at a time) or walks the shapes on the meta
+device.  The reference's ``shardctx`` constraints are no-ops without a mesh
+and are dropped here.  ``chunked_cross_entropy`` and
+``softmax_cross_entropy`` belong to training and come with it
+(``ROADMAP.md``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 
+# Values a float32 draw holds at a time (64 MB).
+_PIECE = 1 << 24
+_into = threading.local()
 
-def _normal(gen: torch.Generator, shape) -> torch.Tensor:
-    return torch.randn(shape, generator=gen, device=gen.device,
-                       dtype=torch.float32)
+
+@contextlib.contextmanager
+def params_into(targets=None):
+    """Inside, :func:`param` takes each parameter's storage from
+    ``targets`` in the order the init helpers make them, or, with
+    ``targets=None``, makes it on the meta device, where nothing is drawn.
+    Yields the list of tensors handed out."""
+    made = []
+    prev = getattr(_into, "state", None)
+    _into.state = (None if targets is None else iter(targets), made)
+    try:
+        yield made
+    finally:
+        _into.state = prev
+
+
+def param(shape, dtype, device) -> torch.Tensor:
+    """Storage for one parameter: the next tensor of the active
+    :func:`params_into`, else a new tensor on ``device``."""
+    state = getattr(_into, "state", None)
+    if state is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    targets, made = state
+    if targets is None:
+        t = torch.empty(shape, dtype=dtype, device="meta")
+    else:
+        t = next(targets)
+        if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+            raise ValueError(f"parameter target {tuple(t.shape)} {t.dtype} "
+                             f"for a {tuple(shape)} {dtype} parameter")
+    made.append(t)
+    return t
+
+
+def normal_param(gen: torch.Generator, shape, dtype,
+                 scale: float = 1.0) -> torch.Tensor:
+    """A parameter of N(0, 1) draws times ``scale``, drawn in float32 pieces
+    of at most ``_PIECE`` values and rounded into its dtype."""
+    t = param(shape, dtype, gen.device)
+    if t.is_meta:
+        return t
+    flat = t.view(-1)
+    for i in range(0, flat.numel(), _PIECE):
+        n = min(_PIECE, flat.numel() - i)
+        flat[i:i + n] = torch.randn(n, generator=gen, device=gen.device,
+                                    dtype=torch.float32).mul_(scale)
+    return t
+
+
+def const_param(shape, value: float, dtype, device) -> torch.Tensor:
+    """A parameter filled with ``value``."""
+    t = param(shape, dtype, device)
+    if not t.is_meta:
+        t.fill_(value)
+    return t
 
 
 def dense_init(gen, d_in: int, d_out: int, dtype, *, bias: bool = False,
                scale=None):
     scale = (1.0 / math.sqrt(d_in)) if scale is None else scale
-    w = _normal(gen, (d_in, d_out)).mul_(scale)
-    p = {"w": w.to(dtype)}
+    p = {"w": normal_param(gen, (d_in, d_out), dtype, scale)}
     if bias:
-        p["b"] = torch.zeros((d_out,), dtype=dtype, device=gen.device)
+        p["b"] = const_param((d_out,), 0.0, dtype, gen.device)
     return p
 
 
@@ -39,7 +101,7 @@ def dense(p, x):
 
 
 def rmsnorm_init(d: int, dtype, device=None):
-    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+    return {"scale": const_param((d,), 1.0, dtype, device)}
 
 
 def rmsnorm(p, x, eps: float = 1e-6):
@@ -50,7 +112,7 @@ def rmsnorm(p, x, eps: float = 1e-6):
 
 
 def embed_init(gen, vocab: int, d: int, dtype):
-    return {"table": _normal(gen, (vocab, d)).mul_(0.02).to(dtype)}
+    return {"table": normal_param(gen, (vocab, d), dtype, 0.02)}
 
 
 def embed(p, ids):
@@ -102,8 +164,8 @@ def head_init(gen, d: int, vocab: int, n_chunks: int, dtype):
     """Unembedding stored chunk-major: (NC, D, V/NC), as the reference
     keeps it for its vocab-chunked loss."""
     assert vocab % n_chunks == 0
-    w = _normal(gen, (n_chunks, d, vocab // n_chunks))
-    return {"w": w.div_(math.sqrt(d)).to(dtype)}
+    return {"w": normal_param(gen, (n_chunks, d, vocab // n_chunks), dtype,
+                              1.0 / math.sqrt(d))}
 
 
 def head_logits(p, x, softcap: float = 0.0):

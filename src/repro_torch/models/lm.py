@@ -4,8 +4,11 @@
 A model is ``n_super`` repetitions of ``cfg.block_pattern`` (a
 "superblock").  Parameters of pattern positions are stacked with leading
 dim n_super, as in the reference; the forward pass is a Python loop over
-superblocks that indexes them.  ``shared_attn`` blocks (zamba2) keep one
-unstacked parameter set used by every superblock.
+superblocks that indexes them.  ``init_params`` allocates each stacked leaf
+once and draws every superblock straight into its slice, so its peak is
+the weights plus a float32 draw of at most 64 MB (``layers.params_into``).
+``shared_attn`` blocks (zamba2) keep one unstacked parameter set used by
+every superblock.
 
 Not ported yet: ``loss_fn`` (LM training, ``ROADMAP.md`` Queue 1),
 ``_encode`` and the patch/audio frontends (the LM configurations and block
@@ -24,7 +27,32 @@ from repro_torch.core._tree import tree_index, tree_map, tree_stack
 
 from .blocks import block_init, block_residual, block_state_init
 from .config import ArchConfig
-from .layers import embed, embed_init, head_init, head_logits, rmsnorm, rmsnorm_init
+from .layers import (
+    embed,
+    embed_init,
+    head_init,
+    head_logits,
+    param,
+    params_into,
+    rmsnorm,
+    rmsnorm_init,
+)
+
+
+def _stacked_init(gen: torch.Generator, cfg: ArchConfig, kind: str):
+    """One block kind's parameters stacked over the superblocks: the
+    block's shapes from a walk on the meta device, each stacked leaf made
+    once, then every superblock drawn into its slice."""
+    with params_into() as protos:
+        tree = block_init(gen, cfg, kind)
+    stacks = [param((cfg.n_super, *t.shape), t.dtype, gen.device)
+              for t in protos]
+    for i in range(cfg.n_super):
+        with params_into([s[i] for s in stacks]):
+            block_init(gen, cfg, kind)
+    where = {id(t): s for t, s in zip(protos, stacks)}
+    return tree_map(lambda t: where[id(t)], tree)
+
 
 def init_params(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, Any]:
     """Parameters drawn from ``gen``, on its device."""
@@ -44,13 +72,19 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, Any]:
     for j, kind in enumerate(cfg.block_pattern):
         if kind == "shared_attn":
             continue
-        blocks[f"b{j}"] = tree_stack(
-            [block_init(gen, cfg, kind) for _ in range(cfg.n_super)]
-        )
+        blocks[f"b{j}"] = _stacked_init(gen, cfg, kind)
     params["blocks"] = blocks
     if "shared_attn" in cfg.block_pattern:
         params["shared"] = block_init(gen, cfg, "shared_attn")
     return params
+
+
+def init_shapes(cfg: ArchConfig) -> Dict[str, Any]:
+    """``init_params``' tree as meta tensors: every leaf's shape and dtype,
+    with nothing allocated and nothing drawn (the reference's
+    ``jax.eval_shape`` of ``init_params``)."""
+    with params_into():
+        return init_params(torch.Generator(), cfg)
 
 
 # ---------------------------------------------------------------------------

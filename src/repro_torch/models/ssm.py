@@ -1,14 +1,20 @@
-"""SSM blocks: Mamba2 (SSD) (port of ``repro/models/ssm.py``).
+"""SSM / linear-RNN blocks: Mamba2 (SSD), mLSTM, sLSTM
+(port of ``repro/models/ssm.py``).
 
-Mamba2's sequence mixing is a prefix scan with an expensive associative
-operator — the LM-side instance of the paper's problem.  It runs through
-``kernels.ops.ssd_scan``: the chunk-local kernels around an inter-chunk
-prefix circuit, i.e. reduce-then-scan (§4.1) inside the model.
+The sequence mixing of Mamba2 and mLSTM is a prefix scan with an expensive
+associative operator — the LM-side instance of the paper's problem.  Both
+run through ``kernels.ops.ssd_scan``: the chunk-local kernels around an
+inter-chunk prefix circuit, i.e. reduce-then-scan (§4.1) inside the model.
+The mLSTM's normaliser ``n_t = f_t n_{t-1} + i_t k_t`` is a (dk,)-vector
+scan of its own, in plain PyTorch (``core.scan.prefix_scan``), as the
+reference's is an ``associative_scan`` in plain XLA.
 
-As in the reference, Mamba2 uses n_groups=1 (B/C shared across heads).
-The mLSTM and sLSTM blocks (xlstm-350m) come in a later slice
-(``ROADMAP.md`` Queue 1, the LM configurations and block kinds); their
-functions raise until then.
+sLSTM is a *nonlinear* recurrence (h_{t-1} feeds the gates) — not
+scannable; it runs as a Python loop over time, where the reference runs
+``lax.scan``.
+
+As in the reference: mLSTM uses sigmoid input gates instead of
+exp-with-max-stabilizer; Mamba2 uses n_groups=1 (B/C shared across heads).
 """
 
 from __future__ import annotations
@@ -16,10 +22,19 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.scan import prefix_scan
 from repro_torch.kernels import ops as kops
 
 from .config import ArchConfig
-from .layers import dense, dense_init, rmsnorm, rmsnorm_init, silu
+from .layers import (
+    const_param,
+    dense,
+    dense_init,
+    normal_param,
+    rmsnorm,
+    rmsnorm_init,
+    silu,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -32,14 +47,15 @@ def mamba2_init(gen, cfg: ArchConfig):
     dev = gen.device
     conv_ch = di + 2 * ds
     in_proj = dense_init(gen, d, 2 * di + 2 * ds + nh, cfg.pdtype)
-    conv_w = torch.randn((cfg.ssm_conv, conv_ch), generator=gen, device=dev)
+    conv_w = normal_param(gen, (cfg.ssm_conv, conv_ch), cfg.pdtype, 0.1)
+    f32 = torch.float32
     return {
         "in_proj": in_proj,
-        "conv_w": conv_w.mul_(0.1).to(cfg.pdtype),
-        "conv_b": torch.zeros((conv_ch,), dtype=cfg.pdtype, device=dev),
-        "a_log": torch.zeros((nh,), dtype=torch.float32, device=dev),  # A = -1
-        "dt_bias": torch.full((nh,), -2.0, dtype=torch.float32, device=dev),
-        "d_skip": torch.ones((nh,), dtype=torch.float32, device=dev),
+        "conv_w": conv_w,
+        "conv_b": const_param((conv_ch,), 0.0, cfg.pdtype, dev),
+        "a_log": const_param((nh,), 0.0, f32, dev),       # A = -exp(0) = -1
+        "dt_bias": const_param((nh,), -2.0, f32, dev),    # softplus(-2) ~ .12
+        "d_skip": const_param((nh,), 1.0, f32, dev),
         "gate_norm": rmsnorm_init(di, cfg.pdtype, dev),
         "out_proj": dense_init(gen, di, d, cfg.pdtype),
     }
@@ -157,17 +173,180 @@ def mamba2_prefill(p, cfg: ArchConfig, x, state):
 
 
 # ---------------------------------------------------------------------------
-# mLSTM / sLSTM (xLSTM): a later slice
+# mLSTM (xLSTM)
 # ---------------------------------------------------------------------------
 
 
-def _xlstm_not_ported(*_args, **_kwargs):
-    raise NotImplementedError(
-        "mLSTM/sLSTM blocks (xlstm-350m) are not ported yet "
-        "(the LM configurations and block kinds, ROADMAP.md Queue 1)"
+def mlstm_init(gen, cfg: ArchConfig):
+    d, nh = cfg.d_model, cfg.n_heads
+    hd = cfg.ssm_head_dim
+    return {
+        "wq": dense_init(gen, d, nh * hd, cfg.pdtype),
+        "wk": dense_init(gen, d, nh * hd, cfg.pdtype),
+        "wv": dense_init(gen, d, nh * hd, cfg.pdtype),
+        "w_gates": dense_init(gen, d, 2 * nh, cfg.pdtype),  # i, f per head
+        "wz": dense_init(gen, d, nh * hd, cfg.pdtype),      # output gate
+        "out_norm": rmsnorm_init(nh * hd, cfg.pdtype, gen.device),
+        "out_proj": dense_init(gen, nh * hd, d, cfg.pdtype),
+    }
+
+
+def _mlstm_qkv(p, cfg: ArchConfig, x):
+    bsz, l, _ = x.shape
+    nh, hd = cfg.n_heads, cfg.ssm_head_dim
+    shp = lambda t: t.reshape(bsz, l, nh, hd).transpose(1, 2)
+    q = shp(dense(p["wq"], x)) * (hd ** -0.5)
+    k = shp(dense(p["wk"], x)) * (hd ** -0.5)
+    v = shp(dense(p["wv"], x))
+    gates = dense(p["w_gates"], x).float()
+    ig, fg = torch.chunk(gates, 2, dim=-1)                  # (B, L, nh)
+    i = torch.sigmoid(ig).transpose(1, 2)                   # (B, nh, L)
+    log_f = F.logsigmoid(fg).transpose(1, 2)
+    return q, k, v, i, log_f
+
+
+def _normalizer_op(a, b):
+    """(f, n) pairs composed along the sequence: n' = f_b n_a + n_b."""
+    return a[0] * b[0], a[1] * b[0][..., None] + b[1]
+
+
+def _mlstm_normalizer(log_f, k_in):
+    """n_t = f_t n_{t-1} + i_t k_t for every t: an inclusive scan of
+    (f_t, k_in_t) along L, as the reference's ``associative_scan``.  The
+    gates multiply one step at a time: a cumulative decay (k / cumprod(f))
+    would underflow float32 within a chunk."""
+    elems = (torch.movedim(torch.exp(log_f), -1, 0).contiguous(),  # (L,B,nh)
+             torch.movedim(k_in, 2, 0).contiguous())               # (L,B,nh,dk)
+    _, n = prefix_scan(_normalizer_op, elems)
+    return torch.movedim(n, 0, 2)                                  # (B,nh,L,dk)
+
+
+def _mlstm_out(p, cfg: ArchConfig, x, y):
+    """The heads' outputs (B, L, nh * hd) through the output norm, the
+    output gate and the projection."""
+    y = rmsnorm(p["out_norm"], y, cfg.norm_eps)
+    y = y * silu(dense(p["wz"], x))
+    return dense(p["out_proj"], y)
+
+
+def mlstm_apply(p, cfg: ArchConfig, x, *, seq_axes=None):
+    bsz, l, _ = x.shape
+    nh, hd = cfg.n_heads, cfg.ssm_head_dim
+    q, k, v, i, log_f = _mlstm_qkv(p, cfg, x)
+    k_in = k * i[..., None].to(k.dtype)
+    num = kops.ssd_scan(
+        q, k_in, v, log_f,
+        chunk=min(cfg.ssm_chunk, l),
+        backend=cfg.ssm_backend,
+        scan_algorithm=cfg.scan_algorithm,
+        axis_names=seq_axes,
     )
+    n = _mlstm_normalizer(log_f, k_in.float())
+    denom = torch.abs(torch.einsum("bhld,bhld->bhl", q.float(), n))
+    y = num / torch.clamp(denom, min=1.0)[..., None].to(num.dtype)
+    y = y.transpose(1, 2).reshape(bsz, l, nh * hd)
+    return _mlstm_out(p, cfg, x, y)
 
 
-mlstm_init = mlstm_apply = mlstm_state_init = _xlstm_not_ported
-mlstm_decode = mlstm_prefill = _xlstm_not_ported
-slstm_init = slstm_apply = slstm_state_init = slstm_decode = _xlstm_not_ported
+def mlstm_state_init(cfg: ArchConfig, batch: int, device=None):
+    nh, hd = cfg.n_heads, cfg.ssm_head_dim
+    return {
+        "C": torch.zeros((batch, nh, hd, hd), dtype=torch.float32,
+                         device=device),
+        "n": torch.zeros((batch, nh, hd), dtype=torch.float32, device=device),
+    }
+
+
+def mlstm_decode(p, cfg: ArchConfig, x, state):
+    bsz = x.shape[0]
+    nh, hd = cfg.n_heads, cfg.ssm_head_dim
+    q, k, v, i, log_f = _mlstm_qkv(p, cfg, x)
+    q1, k1, v1 = q[:, :, 0].float(), k[:, :, 0], v[:, :, 0]
+    f = torch.exp(log_f[..., 0])[..., None, None]
+    k_in = (k1 * i[..., 0][..., None].to(k1.dtype)).float()
+    C = f * state["C"] + torch.einsum("bhd,bhv->bhdv", k_in, v1.float())
+    n = f[..., 0] * state["n"] + k_in
+    num = torch.einsum("bhd,bhdv->bhv", q1, C)
+    denom = torch.abs(torch.einsum("bhd,bhd->bh", q1, n))
+    y = (num / torch.clamp(denom, min=1.0)[..., None]).to(x.dtype)
+    y = y.reshape(bsz, 1, nh * hd)
+    return _mlstm_out(p, cfg, x, y), {"C": C, "n": n}
+
+
+def mlstm_prefill(p, cfg: ArchConfig, x, state):
+    """Prefill: full scan + the final (C, n) state."""
+    q, k, v, i, log_f = _mlstm_qkv(p, cfg, x)
+    k_in = (k * i[..., None].to(k.dtype)).float()
+    ca = torch.cumsum(log_f, dim=-1)
+    to_end = torch.exp(ca[..., -1:] - ca)                          # (B,nh,L)
+    C = torch.einsum("bhld,bhlv->bhdv", k_in * to_end[..., None], v.float())
+    n = torch.einsum("bhld,bhl->bhd", k_in, to_end)
+    y = mlstm_apply(p, cfg, x)
+    return y, {"C": C, "n": n}
+
+
+# ---------------------------------------------------------------------------
+# sLSTM: nonlinear recurrence — a Python loop over time (not scannable)
+# ---------------------------------------------------------------------------
+
+
+def slstm_init(gen, cfg: ArchConfig):
+    d, nh = cfg.d_model, cfg.n_heads
+    hd = d // nh
+    return {
+        "w_in": dense_init(gen, d, 4 * d, cfg.pdtype),     # z, i, f, o
+        "r": normal_param(gen, (nh, hd, 4 * hd), cfg.pdtype,
+                          hd ** -0.5),                     # block-diag recurrent
+        "out_norm": rmsnorm_init(d, cfg.pdtype, gen.device),
+        "out_proj": dense_init(gen, d, d, cfg.pdtype),
+    }
+
+
+def _slstm_cell(p, cfg: ArchConfig, wx_t, state, r=None):
+    """One step: wx_t (B, 4D) precomputed input part; state dict of
+    (B, nh, hd).  ``r``: ``p["r"]`` in float32, when the caller has it."""
+    nh = cfg.n_heads
+    hd = cfg.d_model // nh
+    r = p["r"].float() if r is None else r
+    h, c, n = state["h"], state["c"], state["n"]
+    rec = torch.einsum("bhd,hdk->bhk", h, r)                  # (B, nh, 4hd)
+    pre = wx_t.reshape(-1, nh, 4 * hd).float() + rec
+    z, i, f, o = torch.chunk(pre, 4, dim=-1)
+    z = torch.tanh(z)
+    i = torch.exp(torch.clamp(i, max=10.0) - 10.0)  # bounded exp input gate
+    f = torch.sigmoid(f)
+    o = torch.sigmoid(o)
+    c = f * c + i * z
+    n = f * n + i
+    h = o * c / torch.clamp(n, min=1e-3)
+    return {"h": h, "c": c, "n": n}
+
+
+def slstm_state_init(cfg: ArchConfig, batch: int, device=None):
+    nh = cfg.n_heads
+    hd = cfg.d_model // nh
+    zero = lambda: torch.zeros((batch, nh, hd), dtype=torch.float32,
+                               device=device)
+    return {"h": zero(), "c": zero(), "n": zero()}
+
+
+def slstm_apply(p, cfg: ArchConfig, x, state=None, return_state: bool = False):
+    bsz, l, d = x.shape
+    wx = dense(p["w_in"], x)                                    # (B, L, 4D)
+    if state is None:
+        state = slstm_state_init(cfg, bsz, device=x.device)
+    r = p["r"].float()
+    hs = []
+    for t in range(l):
+        state = _slstm_cell(p, cfg, wx[:, t], state, r)
+        hs.append(state["h"])
+    y = torch.stack(hs, dim=1).reshape(bsz, l, d).to(x.dtype)
+    y = dense(p["out_proj"], rmsnorm(p["out_norm"], y, cfg.norm_eps))
+    if return_state:
+        return y, state
+    return y
+
+
+def slstm_decode(p, cfg: ArchConfig, x, state):
+    y, state = slstm_apply(p, cfg, x, state, return_state=True)
+    return y, state

@@ -824,6 +824,39 @@ def test_chunk_kernels_match_plain(cuda, g, l, dk, dv, dtype, log_a_shift):
                                atol=max(atol, 1e-4))
 
 
+# Head dims above 128 (the mLSTM of xLSTM-350M: dk = dv = 256, G = 64 a
+# prefill): dv in two tiles (of 128; of 72 at 136, padded to 80), dk in
+# four 64-row tiles, chunk_local on one stage; L = 100 and 65 take the
+# cp.async path, L = 1 one padded row, G = 133 walks the resident grid.
+@pytest.mark.parametrize("g,l,dk,dv", [(64, 128, 256, 256), (3, 128, 256, 64),
+                                       (5, 100, 256, 136), (4, 65, 136, 256),
+                                       (2, 1, 256, 256), (133, 128, 256, 256),
+                                       (7, 128, 200, 248)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("log_a_shift", [0.0, -2.0])
+def test_chunk_kernels_at_head_dim_256_match_plain(cuda, g, l, dk, dv, dtype,
+                                                   log_a_shift):
+    test_chunk_kernels_match_plain(cuda, g, l, dk, dv, dtype, log_a_shift)
+
+
+def test_ssd_scan_at_head_dim_256_launches_the_kernels(cuda):
+    """ops.ssd_scan at the mLSTM's shape (4 sequences of 512, 4 heads of
+    256, bf16) through the kernels, against the "xla" path."""
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(7)
+    t = lambda *s: torch.tensor(rng.normal(size=s) * 0.3, dtype=torch.float32,
+                                device=cuda)
+    q, k, v = (t(4, 4, 512, 256).bfloat16() for _ in range(3))
+    la = torch.nn.functional.logsigmoid(t(4, 4, 512) * 3.0)
+    reset_launch_counts()
+    y = ops.ssd_scan(q, k, v, la, backend="pallas")
+    counts = {kk: n for kk, n in launch_counts().items() if n}
+    assert counts == {"chunk_local": 1, "chunk_apply": 1}
+    y_x = ops.ssd_scan(q, k, v, la, backend="xla")
+    torch.testing.assert_close(y.float(), y_x.float(), rtol=2e-2, atol=2e-2)
+
+
 def test_chunk_kernels_take_views_off_a_16_byte_boundary(cuda):
     """The bf16 kernels copy 16-byte pieces of rows; a view that starts two
     bytes into its storage is copied first, not refused."""
@@ -996,6 +1029,54 @@ def test_zamba2_smoke_server_on_card_goes_through_the_kernels(cuda):
     counts = {kk: n for kk, n in launch_counts().items() if n}
     assert counts == {"chunk_local": 2, "chunk_apply": 2, "flash_attention": 1}
     assert stats["generated"] == 24 and all(len(r.output) == 8 for r in reqs)
+
+
+@pytest.mark.parametrize("arch,want", [
+    ("xlstm-350m", {"chunk_local": 3, "chunk_apply": 3}),
+    ("qwen3-32b", {"flash_attention": 2})])
+def test_new_smoke_servers_on_card_go_through_the_kernels(cuda, arch, want):
+    """xLSTM's mLSTM blocks reach the chunk kernels (3 a superblock), the
+    dense blocks flash attention (one a layer); decode reaches none."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import Request, ServeConfig, Server
+
+    cfg = dataclasses.replace(get_smoke_config(arch), attn_backend="pallas",
+                              ssm_backend="pallas")
+    srv = Server(ServeConfig(arch=arch, eos_id=None, max_len=80), acfg=cfg)
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(2, 500, 64, dtype=np.int32), max_new=4)
+            for i in range(3)]
+    reset_launch_counts()
+    stats = srv.serve_batch(reqs)
+    assert {kk: n for kk, n in launch_counts().items() if n} == want
+    assert stats["generated"] == 12
+
+
+def test_init_params_peak_is_the_weights_plus_2gb(cuda):
+    """lm.init_params allocates each stacked leaf once and draws into it in
+    float32 pieces of 64 MB: at qwen3-32b's width and 4 layers (~7 GB of
+    bf16 weights) the peak is the weights plus at most 2 GB."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core._tree import tensor_leaves
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_config("qwen3-32b"), n_layers=4)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    params = lm.init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    weights = sum(t.numel() * t.element_size() for t in tensor_leaves(params))
+    peak = torch.cuda.max_memory_allocated(cuda) - base
+    assert weights > 6e9
+    assert weights <= peak <= weights + 2e9, (weights, peak)
+    del params
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------ serving, recovery, simulate on card

@@ -57,21 +57,31 @@ def _tokens(b, l, vocab, seed=0):
     return np.random.default_rng(seed).integers(0, vocab, (b, l)).astype(np.int32)
 
 
+# The reference's configurations the port serves, in the reference's order.
+PORTED = ["codeqwen1.5-7b", "internlm2-20b", "qwen3-32b", "qwen2-72b",
+          "xlstm-350m", "zamba2-7b"]
+
+
 def test_configs_match_reference():
-    for get_t, get_r in ((configs.get_config, ref_get_config),
-                         (configs.get_smoke_config, ref_get_smoke)):
-        t, r = get_t(ARCH), get_r(ARCH)
-        assert dataclasses.asdict(t) == dataclasses.asdict(r)
-        for prop in ("hd", "padded_vocab", "head_chunks", "n_super", "d_inner",
-                     "ssm_heads", "ssm_head_dim"):
-            assert getattr(t, prop) == getattr(r, prop), prop
-        assert t.param_count() == r.param_count()
-        assert t.active_param_count() == r.active_param_count()
-        assert t.pdtype == getattr(torch, str(r.pdtype))
-        assert t.cdtype == getattr(torch, str(r.cdtype))
+    from repro.configs import ALIASES as REF_ALIASES
+    from repro.configs import list_archs as ref_list_archs
+
+    for arch in PORTED:
+        for get_t, get_r in ((configs.get_config, ref_get_config),
+                             (configs.get_smoke_config, ref_get_smoke)):
+            t, r = get_t(arch), get_r(arch)
+            assert dataclasses.asdict(t) == dataclasses.asdict(r)
+            for prop in ("hd", "padded_vocab", "head_chunks", "n_super",
+                         "d_inner", "ssm_heads", "ssm_head_dim"):
+                assert getattr(t, prop) == getattr(r, prop), prop
+            assert t.param_count() == r.param_count()
+            assert t.active_param_count() == r.active_param_count()
+            assert t.pdtype == getattr(torch, str(r.pdtype))
+            assert t.cdtype == getattr(torch, str(r.cdtype))
     assert configs.get_config("zamba2_7b") is configs.get_config(ARCH)
-    assert configs.ALIASES == {ARCH: "zamba2_7b"}
-    assert configs.list_archs() == ["zamba2_7b"]
+    assert configs.ALIASES == {a: REF_ALIASES[a] for a in PORTED}
+    assert configs.list_archs() == [a for a in ref_list_archs()
+                                    if a in configs.ALIASES.values()]
     assert {s.name: dataclasses.astuple(s) for s in config.SHAPES.values()} == {
         s.name: dataclasses.astuple(s) for s in ref_config.SHAPES.values()}
     # Zamba2 at full width: 4.64 B parameters by the analytic count.
@@ -79,13 +89,15 @@ def test_configs_match_reference():
 
 
 def test_unported_configs_and_kinds_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        configs.get_config("xlstm-350m")
+    for name in ("phi3.5-moe-42b-a6.6b", "arctic-480b", "internvl2-1b",
+                 "whisper-base"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            configs.get_config(name)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         configs.get_smoke_config("phi3.5-moe-42b-a6.6b")
     cfg = configs.get_smoke_config(ARCH)
     gen = torch.Generator().manual_seed(0)
-    for kind in ("moe", "mlstm", "slstm"):
+    for kind in ("moe",):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             blocks.block_init(gen, cfg, kind)
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -219,15 +219,18 @@ def _chip_smoke(*args):
 
 def test_chip_smoke_cpu_rehearsal_runs_the_flow():
     """The chip script's series, compose, engine, serving, restore,
-    simulate, multi-device and LM phases on the CPU (plain kernels): it
-    prints their lines, no result line, and exits 3."""
+    simulate, multi-device and LM phases (every served configuration's
+    smoke model) on the CPU (plain kernels): it prints their lines, no
+    result line, and exits 3."""
     out = _chip_smoke("--cpu-rehearsal")
     assert out.returncode == 3, out.stderr
     lines = out.stdout.splitlines()
-    assert [ln.split()[0] for ln in lines] == [
+    assert [ln[:ln.index(" {")] for ln in lines] == [
         "series", "series_hier", "series_compose", "scan_engine", "serving",
         "series_restore", "simulate", "collective", "sharded", "lm_serve",
-        "lm_check"]
+        "lm_serve codeqwen1.5-7b", "lm_serve internlm2-20b",
+        "lm_serve qwen3-32b", "lm_serve qwen2-72b", "lm_serve xlstm-350m",
+        "lm_check", "lm_check xlstm-350m"]
     assert '"ok"' not in out.stdout
 
 

@@ -46,6 +46,8 @@ for _ in range(20):
 print(json.dumps({
     "tree": sys.argv[1], "lookback_ms": kl["ms"],
     "chunk_local_ms": kc_local["ms"], "chunk_apply_ms": kc_apply["ms"],
+    "chunk_local_f32_ms": kc_local["f32"]["ms"],
+    "chunk_apply_f32_ms": kc_apply["f32"]["ms"],
     "decoupled_add_wall_ms_median": sorted(walls)[10],
     "card": cs._smi(),
 }), flush=True)
