@@ -26,7 +26,10 @@ kernels' launch counts zeroed just before it and read just after:
   ``fused_plan`` launch on a thread-block cluster) and at 2^17 x 4 (too
   large for a cluster: one ``fused_round`` launch a non-empty round), and
   tiles mode at 2^24 (add over 16 tiles, max over 4096; one
-  ``tile_local_scan`` and one ``tile_apply`` launch);
+  ``tile_local_scan`` and one ``tile_apply`` launch); and the same paths
+  on bf16 rows (decoupled at 2^24, rounds at 2^16, tiles at 2^24) and
+  the matmul entry (later @ earlier over 4,096 2 x 2 matrices, decoupled
+  and rounds);
 * ``serving``: a ``repro_torch.serving.RegistrationFrontend`` (round-robin,
   one dispatcher) whose sessions take the default device, with three
   tenants of 1920x1920 frames (an interactive refining one, a composing
@@ -66,13 +69,22 @@ kernels' launch counts zeroed just before it and read just after:
   and qwen3-32b (``flash_attention`` at d = 128, 32, 48 and 64 launches a
   prefill) and xlstm-350m (``chunk_local`` and ``chunk_apply`` at
   dk = dv = 256, 18 each) at full width and depth, and qwen2-72b at full
-  width and 16 of 80 layers (its cut listed under ``reduced``); each line
-  gives the init's seconds and peak memory (at most the weights plus 2 GB)
-  and the serves' peak, each model freed before the next;
+  width and 16 of 80 layers (its cut listed under ``reduced``);
+  phi3.5-moe-42b-a6.6b at 28 of 32 layers and arctic-480b at 2 of 35
+  (``moe`` blocks: flash once a layer, the MoE einsums on cuBLAS);
+  internvl2-1b behind 256 zero patches with text prompts of 256 (150)
+  tokens (flash 24 a prefill); whisper-base on its registry's "xla"
+  backends with 1500 zero frames and prompts of 4 tokens (no kernel: 1500
+  frames fail the flash kernel's block check in both packages, the line
+  says so); each line gives the init's seconds and peak memory (at most
+  the weights plus 2 GB) and the serves' peak, each model freed before
+  the next;
 * ``lm_check``: Zamba2-7B at full width and 3 superblocks in float32, batch 2,
   prompt 512: logits through the kernels against the "xla" path, within 2e-2;
   ``lm_check xlstm-350m`` the same at full width and depth (the float32
-  chunk kernels at d = 256).
+  chunk kernels at d = 256); ``lm_check whisper-base`` at full width and
+  depth with the encoder on 1,024 seeded frames (6 non-causal flash
+  launches in the encoder, 6 causal in the decoder, counted apart).
 
 Output, one line each: ``env``, ``build``, ``kernel warp_ncc``,
 ``kernel lookback_scan``, ``kernel tile_local_scan``, ``kernel tile_apply``,
@@ -80,7 +92,10 @@ Output, one line each: ``env``, ``build``, ``kernel warp_ncc``,
 ``fused_plan`` kernel), ``kernel chunk_local``, ``kernel chunk_apply``
 (and each at the mLSTM's d = 256, ``kernel chunk_local d256``),
 ``kernel flash_attention`` (and at qwen3-32b's d = 128, ``kernel
-flash_attention d128``, beside SDPA), ``redesign`` (the seven kernels redesigned for
+flash_attention d128``, at InternVL2's d = 64, ``kernel flash_attention
+d64``, and non-causal at Whisper's encoder shape, ``kernel
+flash_attention d64 noncausal``, each beside SDPA; the scan kernels' lines
+carry their bf16 add and matmul entries), ``redesign`` (the seven kernels redesigned for
 Hopper, warp_ncc, flash_attention, lookback_scan, fused_round, tile_apply,
 chunk_local and chunk_apply, beside their previous designs: times, the
 library call's, the bound, the HGMMA count of flash_attention's and
@@ -88,7 +103,8 @@ chunk_scan's SASS and lookback_scan's longest walk),
 ``series``, ``series_hier``, ``series_compose``,
 ``scan_engine``, ``serving``, ``series_restore``, ``simulate``,
 ``collective``, ``sharded``, ``lm_serve`` (and one a configuration),
-``lm_check`` (and ``lm_check xlstm-350m``), ``kernels``
+``lm_check`` (and ``lm_check xlstm-350m``, ``lm_check whisper-base``),
+``kernels``
 (JSON), the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``.  Any
 failed phase raises and the script exits non-zero; without a CUDA device it
@@ -153,8 +169,14 @@ PALLAS_TILES = (16, 4096)
 RIGID_RTOL = 1e-5
 
 
+_START = time.perf_counter()
+
+
 def _line(tag: str, payload) -> None:
     print(f"{tag} {json.dumps(payload, sort_keys=False)}", flush=True)
+    # Where the run's time goes, on stderr.
+    print(f"chip_smoke: {tag} done at {time.perf_counter() - _START:.1f} s",
+          file=sys.stderr, flush=True)
 
 
 def _smi() -> str:
@@ -504,6 +526,173 @@ def check_lookback_scan(device) -> dict:
         "walk_steps_max": int(walk.max()), "walk_steps_mean": float(walk.mean()),
         "rigid_compose": rigid, "max": max_row,
     }
+
+
+MATMUL_N = 4096              # the matmul entry's rows (the series length)
+MATMUL_TOL = 1e-4            # kernel vs plain: float32 sums in other orders
+
+
+def check_scan_entries(device) -> dict:
+    """The scan kernels' bfloat16 add entry and matmul entry against their
+    plain versions: bf16 add at 2^24 x 1 through lookback_scan and the tile
+    kernels, and at 2^16 x 1 through fused_round (every round of a
+    Ladner-Fischer plan) and fused_plan, exact (telescoping integer rows);
+    later @ earlier over 4,096 orthogonal 2 x 2 and 4 x 4 float32 matrices
+    through each, to MATMUL_TOL.  Times beside torch.cumsum on the same
+    bf16 tensor (no library call scans matrices) and the bound.  Returns
+    {kernel name: {"bf16_add": ..., "matmul_2x2": ..., "matmul_4x4": ...}}."""
+    from repro_torch.core.engine import get_plan
+    from repro_torch.core.engine.pallas_backend import (
+        _plan_operands, _round_index_tensors,
+    )
+    from repro_torch.data.scan_rows import (
+        matmul_compose, orthogonal_matrices, telescoping_bf16,
+    )
+    from repro_torch.kernels import lookback_scan as lb
+    from repro_torch.kernels import tile_scan as ts
+    from repro_torch.kernels._tiling import (
+        default_num_tiles_cuda, plan_cluster_size,
+    )
+
+    out = {name: {} for name in ("lookback_scan", "tile_local_scan",
+                                 "tile_apply", "fused_round", "fused_plan")}
+    tiles = TILE_COUNTS[0]
+
+    def rounds(fn, op, x, live):
+        for src in live:
+            x = fn(op, x, src)
+        return x
+
+    def entry(n, d, esize, ops, err, call, plain, library=None, **extra):
+        row = {"shape": [n, d], "max_abs_err": err, "ms": _time_ms(call),
+               "plain_ms": _time_ms(plain, reps=3, warmup=1),
+               "library_ms": None if library is None else _time_ms(library),
+               **_bound(2 * n * d * esize, ops), **extra}
+        if library is not None:
+            row["library_call"] = "torch.cumsum(x, 0) on the bf16 rows"
+        return row
+
+    # bf16 add: lookback_scan and the tile kernels at 2^24 x 1.
+    n = SCAN_N
+    x, exact = telescoping_bf16(n, 1, 30, device=device)
+    t = default_num_tiles_cuda(n)
+    yk = lb.lookback_scan_cuda(torch.add, x, t)[0]
+    yp = lb.lookback_scan_reference(torch.add, x, t)[0]
+    err = max(_require_equal(yk, yp, "lookback_scan bf16"),
+              _require_equal(yk, exact, "lookback_scan bf16 vs exact"))
+    cumsum = lambda: torch.cumsum(x, 0)   # noqa: E731
+    out["lookback_scan"]["bf16_add"] = entry(
+        n, 1, 2, n, err, lambda: lb.lookback_scan_cuda(torch.add, x, t),
+        lambda: lb.lookback_scan_reference(torch.add, x, t), cumsum, tiles=t)
+    loc, parts = ts.tile_local_scan_cuda(torch.add, x, tiles)
+    ploc, pparts = ts.tile_local_scan_reference(torch.add, x, tiles)
+    err = max(_require_equal(loc, ploc, "tile_local_scan bf16"),
+              _require_equal(parts, pparts, "tile partials bf16"))
+    out["tile_local_scan"]["bf16_add"] = entry(
+        n, 1, 2, n, err, lambda: ts.tile_local_scan_cuda(torch.add, x, tiles),
+        lambda: ts.tile_local_scan_reference(torch.add, x, tiles), cumsum,
+        tiles=tiles)
+    seeds = torch.cat([pparts[:1], torch.cumsum(pparts.float(), 0)[:-1]
+                       .to(torch.bfloat16)])
+    yk = ts.tile_apply_cuda(torch.add, ploc, seeds)
+    yp = ts.tile_apply_reference(torch.add, ploc, seeds)
+    err = max(_require_equal(yk, yp, "tile_apply bf16"),
+              _require_equal(yk, exact.view(-1, 1), "tile kernels bf16 vs "
+                             "exact"))
+    out["tile_apply"]["bf16_add"] = entry(
+        n, 1, 2, n, err, lambda: ts.tile_apply_cuda(torch.add, ploc, seeds),
+        lambda: ts.tile_apply_reference(torch.add, ploc, seeds), cumsum,
+        tiles=tiles)
+    del loc, parts, ploc, pparts, yk, yp
+
+    # bf16 add: fused_round and fused_plan at 2^16 x 1 (Ladner-Fischer).
+    n = ROUNDS_N
+    xr, exact_r = telescoping_bf16(n, 1, 31, device=device)
+    plan = get_plan("ladner_fischer", n)
+    live = [s for s in _round_index_tensors(plan, device) if s is not None]
+    po = _plan_operands(plan, device, plan_cluster_size(n, 1))
+    yk = rounds(ts.fused_round_cuda, torch.add, xr, live)
+    yp = rounds(ts.fused_round_reference, torch.add, xr, live)
+    err = max(_require_equal(yk, yp, "fused_round bf16"),
+              _require_equal(yk, exact_r, "fused_round bf16 vs exact"))
+    cumsum_r = lambda: torch.cumsum(xr, 0)   # noqa: E731
+    out["fused_round"]["bf16_add"] = entry(
+        n, 1, 2, plan.work(), err,
+        lambda: rounds(ts.fused_round_cuda, torch.add, xr, live),
+        lambda: rounds(ts.fused_round_reference, torch.add, xr, live),
+        cumsum_r, rounds=len(live))
+    yk, _ = ts.fused_plan_cuda(torch.add, xr, po)
+    yp, _ = ts.fused_plan_reference(torch.add, xr, po)
+    err = max(_require_equal(yk, yp, "fused_plan bf16"),
+              _require_equal(yk, exact_r, "fused_plan bf16 vs exact"))
+    out["fused_plan"]["bf16_add"] = entry(
+        n, 1, 2, plan.work(), err,
+        lambda: ts.fused_plan_cuda(torch.add, xr, po),
+        lambda: ts.fused_plan_reference(torch.add, xr, po), cumsum_r,
+        cluster=po.cluster)
+
+    # matmul: 2 x 2 and 4 x 4 float32 matrices, 4,096 of them.
+    op = matmul_compose
+    n = MATMUL_N
+    plan = get_plan("ladner_fischer", n)
+    live = [s for s in _round_index_tensors(plan, device) if s is not None]
+    for m in (2, 4):
+        d = m * m
+        x2 = orthogonal_matrices(n, m, 32 + m, device=device).reshape(n, d)
+        ops = 2 * m ** 3         # multiplies and adds of one product
+        want = lb.lookback_scan_reference(op, x2.double(), 1)[0]
+
+        def held(got, what, want=want):
+            err = float((got.double() - want).abs().max())
+            if not err <= MATMUL_TOL:
+                raise AssertionError(f"{what} matmul {m}x{m}: error {err} "
+                                     "against the float64 chain")
+            return err
+
+        tag = f"matmul_{m}x{m}"
+        t = default_num_tiles_cuda(n)
+        yk = lb.lookback_scan_cuda(op, x2, t)[0]
+        yp = lb.lookback_scan_reference(op, x2, t)[0]
+        err = max(held(yk, "lookback_scan"), float((yk - yp).abs().max()))
+        out["lookback_scan"][tag] = entry(
+            n, d, 4, n * ops, err, lambda: lb.lookback_scan_cuda(op, x2, t),
+            lambda: lb.lookback_scan_reference(op, x2, t), tiles=t,
+            max_abs_err_vs_float64=held(yk, "lookback_scan"))
+        loc, parts = ts.tile_local_scan_cuda(op, x2, tiles)
+        ploc, pparts = ts.tile_local_scan_reference(op, x2, tiles)
+        err = float((loc - ploc).abs().max())
+        if not err <= MATMUL_TOL:
+            raise AssertionError(f"tile_local_scan {tag}: error {err}")
+        out["tile_local_scan"][tag] = entry(
+            n, d, 4, n * ops, err,
+            lambda: ts.tile_local_scan_cuda(op, x2, tiles),
+            lambda: ts.tile_local_scan_reference(op, x2, tiles), tiles=tiles)
+        gscan = lb.lookback_scan_reference(op, pparts, 1)[0]
+        seeds = torch.cat([pparts[:1], gscan[:-1]])
+        yk = ts.tile_apply_cuda(op, ploc, seeds)
+        yp = ts.tile_apply_reference(op, ploc, seeds)
+        err = max(float((yk - yp).abs().max()), held(yk, "tile kernels"))
+        out["tile_apply"][tag] = entry(
+            n, d, 4, n * ops, err, lambda: ts.tile_apply_cuda(op, ploc, seeds),
+            lambda: ts.tile_apply_reference(op, ploc, seeds), tiles=tiles)
+        yk = rounds(ts.fused_round_cuda, op, x2, live)
+        yp = rounds(ts.fused_round_reference, op, x2, live)
+        err = max(float((yk - yp).abs().max()), held(yk, "fused_round"))
+        out["fused_round"][tag] = entry(
+            n, d, 4, plan.work() * ops, err,
+            lambda: rounds(ts.fused_round_cuda, op, x2, live),
+            lambda: rounds(ts.fused_round_reference, op, x2, live),
+            rounds=len(live))
+        po = _plan_operands(plan, device, plan_cluster_size(n, d))
+        yk, _ = ts.fused_plan_cuda(op, x2, po)
+        yp, _ = ts.fused_plan_reference(op, x2, po)
+        err = max(float((yk - yp).abs().max()), held(yk, "fused_plan"))
+        out["fused_plan"][tag] = entry(
+            n, d, 4, plan.work() * ops, err,
+            lambda: ts.fused_plan_cuda(op, x2, po),
+            lambda: ts.fused_plan_reference(op, x2, po), cluster=po.cluster)
+    torch.cuda.synchronize()
+    return out
 
 
 def check_tile_kernels(device) -> tuple:
@@ -1613,6 +1802,9 @@ def run_scan_engine(device, n: int, series_len: int, rounds_n: int) -> dict:
     tiles at ``n``), each call with its launch counts and result checked."""
     from repro_torch.core.deformation import compose_batched
     from repro_torch.core.engine import get_plan, hierarchical, scan
+    from repro_torch.data.scan_rows import (
+        matmul_compose, orthogonal_matrices, telescoping_bf16,
+    )
     from repro_torch.kernels import launch_counts, reset_launch_counts
 
     on_card = device.type == "cuda"
@@ -1651,6 +1843,19 @@ def run_scan_engine(device, n: int, series_len: int, rounds_n: int) -> dict:
     wide = _live_rounds(get_plan("ladner_fischer", 2 * rounds_n))
     plan1 = {"fused_plan": 1}
     tiles = {"tile_local_scan": 1, "tile_apply": 1}
+    # bf16 rows (telescoping integers: exact in any grouping) and the
+    # matmul entry over 2 x 2 orthogonal matrices, against float64.
+    xb, exact_b = (t[:, 0] for t in telescoping_bf16(n, 1, 33,
+                                                     device=device))
+    xbr, exact_br = (t[:, 0] for t in telescoping_bf16(rounds_n, 1, 34,
+                                                       device=device))
+    matop = matmul_compose
+    mats = orthogonal_matrices(series_len, 2, 35, device=device)
+    chain = [mats[0].double()]
+    for i in range(1, series_len):
+        chain.append(mats[i].double() @ chain[-1])
+    mats64 = torch.stack(chain)
+    near = lambda y: float((y.double() - mats64).abs().max()) <= MATMUL_TOL  # noqa: E731
 
     calls = [
         ("decoupled_add", lambda: scan(torch.add, x),
@@ -1695,6 +1900,23 @@ def run_scan_engine(device, n: int, series_len: int, rounds_n: int) -> dict:
          lambda: scan(torch.maximum, xf, backend="pallas",
                       num_blocks=PALLAS_TILES[1]),
          lambda y: torch.equal(y, cummax), tiles),
+        ("decoupled_add_bf16", lambda: scan(torch.add, xb),
+         lambda y: torch.equal(y, exact_b), {"lookback_scan": 1}),
+        ("pallas_rounds_add_bf16",
+         lambda: scan(torch.add, xbr, backend="pallas",
+                      algorithm="ladner_fischer"),
+         lambda y: torch.equal(y, exact_br), plan1),
+        ("pallas_tiles_add_bf16_16",
+         lambda: scan(torch.add, xb, backend="pallas",
+                      num_blocks=PALLAS_TILES[0]),
+         lambda y: torch.equal(y, exact_b), tiles),
+        ("decoupled_matmul_2x2", lambda: scan(matop, mats,
+                                              backend="decoupled"),
+         near, {"lookback_scan": 1}),
+        ("pallas_rounds_matmul_2x2",
+         lambda: scan(matop, mats, backend="pallas",
+                      algorithm="ladner_fischer"),
+         near, plan1),
     ]
     out = {"n": n, "rounds_n": rounds_n, "series_len": series_len,
            "calls": {}}
@@ -1735,6 +1957,10 @@ LM_MAX_NEW = 16
 LM_MAX_LEN = 1024            # >= prompt + max_new: decode drops later writes
 LM_CHECK_LAYERS = 9          # lm_check: 3 superblocks in float32
 LM_CHECK_TOL = 2e-2          # tests/test_models.py:99 (prefill logits)
+# Whisper's encoder frames in lm_check and the non-causal kernel line: its
+# published 1500 fail the kernel's block check (1500 % 256 != 0) in both
+# packages, 1024 is the nearest length that passes.
+WHISPER_CHECK_FRAMES = 1024
 # Kernel checks against the plain versions on the card: float32 at the
 # reference's kernel-oracle tolerance (tests/test_kernels.py:58-74, :105).
 # In bfloat16 kernel and plain version both accumulate in float32 and round
@@ -1915,12 +2141,13 @@ def check_chunk_kernels(device) -> tuple:
             line(cs.APPLY_NAME, cs.APPLY_REPLACES, apply, wide_apply))
 
 
-def _flash_rows(fa, heads, kv_heads, l, d, dtypes, device) -> dict:
+def _flash_rows(fa, heads, kv_heads, l, d, dtypes, device,
+                causal: bool = True) -> dict:
     """flash_attention's rows at a prefill of LM_BATCH x heads, by dtype:
     held against its plain version (causal and not, two block choices),
-    timed beside it, SDPA on the same tensors and the bound.  With GQA
-    (kv_heads < heads) the kernel gets K and V repeated to the query
-    heads, as ops.attention feeds it."""
+    timed beside it in the ``causal`` mode given, SDPA on the same tensors
+    in that mode and the bound.  With GQA (kv_heads < heads) the kernel
+    gets K and V repeated to the query heads, as ops.attention feeds it."""
     bh = LM_BATCH * heads
     rows = {}
     for dtype, tag in dtypes:
@@ -1932,9 +2159,9 @@ def _flash_rows(fa, heads, kv_heads, l, d, dtypes, device) -> dict:
                 .repeat_interleave(heads // kv_heads, dim=1)
                 .reshape(bh, l, d) for _ in range(2))
         err = 0.0
-        for causal in (True, False):
+        for held_causal in (True, False):
             for blocks in ((256, 512), (128, 128)):
-                kw = {"causal": causal, "block_q": blocks[0],
+                kw = {"causal": held_causal, "block_q": blocks[0],
                       "block_k": blocks[1]}
                 o_k = fa.flash_attention_cuda(q, k, v, **kw)
                 o_p = fa.flash_attention_reference(q, k, v, **kw)
@@ -1943,23 +2170,24 @@ def _flash_rows(fa, heads, kv_heads, l, d, dtypes, device) -> dict:
                                          f"flash_attention {tag} {kw}"))
         q4, k4, v4 = (t.view(LM_BATCH, heads, l, d) for t in (q, k, v))
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        err_sdpa = float((fa.flash_attention_cuda(q, k, v).view_as(q4).float()
-                          - sdpa(q4, k4, v4, is_causal=True).float())
+        kern = lambda: fa.flash_attention_cuda(q, k, v, causal=causal)  # noqa: E731
+        plain = lambda: fa.flash_attention_reference(q, k, v, causal=causal)  # noqa: E731
+        err_sdpa = float((kern().view_as(q4).float()
+                          - sdpa(q4, k4, v4, is_causal=causal).float())
                          .abs().max())
         esz = q.element_size()
-        tri = l * (l + 1) // 2
+        pairs = l * (l + 1) // 2 if causal else l * l
         nbytes = 4 * bh * l * d * esz
-        ops = bh * 4 * tri * d          # q k^T and p v over the causal pairs
+        ops = bh * 4 * pairs * d        # q k^T and p v over the pairs attended
         peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
-        mag = float(fa.flash_attention_reference(q, k, v).float().abs().mean())
+        mag = float(plain().float().abs().mean())
         rows[tag] = {
             "max_abs_err": err, "max_abs_err_vs_sdpa": err_sdpa,
-            "mean_abs_out": mag,
-            "ms": _time_ms(lambda: fa.flash_attention_cuda(q, k, v)),
-            "graph_ms": _graph_ms(lambda: fa.flash_attention_cuda(q, k, v)),
-            "plain_ms": _time_ms(lambda: fa.flash_attention_reference(q, k, v),
-                                 reps=10),
-            "library_ms": _time_ms(lambda: sdpa(q4, k4, v4, is_causal=True)),
+            "mean_abs_out": mag, "causal": causal,
+            "ms": _time_ms(kern), "graph_ms": _graph_ms(kern),
+            "plain_ms": _time_ms(plain, reps=10),
+            "library_ms": _time_ms(lambda: sdpa(q4, k4, v4,
+                                                is_causal=causal)),
             **_bound(nbytes, ops, peak), "bytes": nbytes, "flops": ops,
         }
         del q, k, v, q4, k4, v4
@@ -1987,6 +2215,29 @@ def check_flash_attention(device) -> dict:
                 library_call="F.scaled_dot_product_attention(q, k, v, "
                              f"is_causal=True) on ({LM_BATCH}, "
                              f"{dense.n_heads}, {l}, {dense.hd})")
+    # d = 64: InternVL2-1B's decoder (14 query heads over 2, causal, L =
+    # 512) and Whisper-base's encoder (8 heads, non-causal, L = 1024, the
+    # frames lm_check feeds it; f32 is what lm_check runs).
+    vlm = get_config("internvl2-1b")
+    d64 = _flash_rows(fa, vlm.n_heads, vlm.n_kv_heads, l, vlm.hd,
+                      ((torch.bfloat16, "bf16"),), device)["bf16"]
+    d64.update(shape=[LM_BATCH * vlm.n_heads, l, vlm.hd], dtype="bf16",
+               arch=vlm.name, kv_heads=vlm.n_kv_heads,
+               library_call="F.scaled_dot_product_attention(q, k, v, "
+                            f"is_causal=True) on ({LM_BATCH}, "
+                            f"{vlm.n_heads}, {l}, {vlm.hd})")
+    asr = get_config("whisper-base")
+    nc = _flash_rows(fa, asr.n_heads, asr.n_kv_heads, WHISPER_CHECK_FRAMES,
+                     asr.hd, ((torch.bfloat16, "bf16"),
+                              (torch.float32, "f32")), device, causal=False)
+    d64_nc = dict(nc["bf16"])
+    d64_nc.update(shape=[LM_BATCH * asr.n_heads, WHISPER_CHECK_FRAMES,
+                         asr.hd], dtype="bf16", arch=asr.name,
+                  f32=nc["f32"],
+                  library_call="F.scaled_dot_product_attention(q, k, v, "
+                               f"is_causal=False) on ({LM_BATCH}, "
+                               f"{asr.n_heads}, {WHISPER_CHECK_FRAMES}, "
+                               f"{asr.hd})")
     head = rows["bf16"]
     return {
         "name": fa.NAME, "route": "cuda", "source": fa.SOURCE,
@@ -1997,6 +2248,7 @@ def check_flash_attention(device) -> dict:
         "library_call": "F.scaled_dot_product_attention(q, k, v, "
                         "is_causal=True) on (4, 32, 512, 112)",
         "f32": rows["f32"], "bf16": rows["bf16"], "d128": d128,
+        "d64": d64, "d64_noncausal": d64_nc,
     }
 
 
@@ -2250,16 +2502,22 @@ def _lm_config(smoke: bool, arch: str = "zamba2-7b", **kw):
 
 def _want_prefill_launches(cfg) -> dict:
     """The LM kernels a prefill of ``cfg`` launches: flash_attention once
-    an attention block, chunk_local and chunk_apply once a Mamba2 or mLSTM
-    block (the sLSTM runs none)."""
+    an attention or MoE block and once an encoder layer (those also count
+    as flash_attention_noncausal), chunk_local and chunk_apply once a
+    Mamba2 or mLSTM block (the sLSTM runs none; the cross-attention takes
+    the plain path); none on the "xla" backends."""
     want = {}
+    attn = ("flash_attention",) if cfg.attn_backend == "pallas" else ()
+    enc = attn + ("flash_attention_noncausal",) if attn else ()
+    ssm = (("chunk_local", "chunk_apply") if cfg.ssm_backend == "pallas"
+           else ())
     for kind in cfg.block_pattern:
-        names = {"attn": ("flash_attention",),
-                 "shared_attn": ("flash_attention",),
-                 "mamba2": ("chunk_local", "chunk_apply"),
-                 "mlstm": ("chunk_local", "chunk_apply")}.get(kind, ())
+        names = {"attn": attn, "shared_attn": attn, "moe": attn,
+                 "mamba2": ssm, "mlstm": ssm}.get(kind, ())
         for name in names:
             want[name] = want.get(name, 0) + cfg.n_super
+    for name in enc if cfg.encoder_layers else ():
+        want[name] = want.get(name, 0) + cfg.encoder_layers
     return want
 
 
@@ -2285,14 +2543,48 @@ def _logit_gap(a, b) -> dict:
             "top1_agree": float((a.argmax(-1) == b.argmax(-1)).float().mean())}
 
 
-# lm_serve's models: Zamba2-7B, then the dense configurations and
-# xLSTM-350M at full width and depth, but qwen2-72b (145 GB of bf16
-# weights) at 16 of its 80 layers on the 80 GB card.
+# lm_serve's models: Zamba2-7B, then the other configurations at full
+# width and depth, but those whose bf16 weights outgrow the 80 GB card at
+# a cut depth: qwen2-72b at 16 of 80 layers, phi3.5-moe at 28 of 32,
+# arctic at 2 of 35.
 LM_SERVE_ARCHS = ("codeqwen1.5-7b", "internlm2-20b", "qwen3-32b",
-                  "qwen2-72b", "xlstm-350m")
-LM_SERVE_CUT = {"qwen2-72b": (16, "145 GB of bf16 weights at 80 layers "
-                              "against one 80 GB card; full depth waits "
-                              "for LM multi-device (ROADMAP.md Queue 1)")}
+                  "qwen2-72b", "xlstm-350m", "phi3.5-moe-42b-a6.6b",
+                  "arctic-480b", "internvl2-1b", "whisper-base")
+_MULTI_DEVICE = "full depth waits for LM multi-device (ROADMAP.md Queue 1)"
+LM_SERVE_CUT = {
+    "qwen2-72b": (16, "145 GB of bf16 weights at 80 layers against one "
+                      "80 GB card; " + _MULTI_DEVICE),
+    "phi3.5-moe-42b-a6.6b": (28, "83.7 GB of bf16 weights at 32 layers "
+                                 "against one 80 GB card (28 layers: 73.3 "
+                                 "GB); " + _MULTI_DEVICE),
+    "arctic-480b": (2, "954 GB of bf16 weights at 35 layers (27.2 GB a "
+                       "layer) against one 80 GB card; " + _MULTI_DEVICE),
+}
+VLM_SHORT_PROMPT = 150       # left-padded behind the patches
+WHISPER_PROMPT = 4           # decoder prompts, padded to 8 by serve_batch
+
+
+def _serve_prompts(cfg) -> list:
+    """The prompt lengths ``cfg`` is served with: LM_PROMPT x 3 and
+    LM_SHORT_PROMPT; behind a patch prefix, text that fills LM_PROMPT
+    positions with it (InternVL2's 256 patches + 256 tokens: 768 positions
+    would fail the kernel's block check, as in the reference); short
+    decoder prompts for an encoder-decoder config."""
+    if cfg.frontend == "patch":
+        return [LM_PROMPT - cfg.frontend_len] * (LM_BATCH - 1) + [
+            VLM_SHORT_PROMPT]
+    if cfg.encoder_layers:
+        return [WHISPER_PROMPT] * LM_BATCH
+    return [LM_PROMPT] * (LM_BATCH - 1) + [LM_SHORT_PROMPT]
+
+# Served on its registry config (the "xla" backends), as the reference's
+# Server serves it: its 1500 frames fail the kernel's block check in both
+# packages.
+LM_SERVE_REGISTRY = {"whisper-base": "1500 encoder frames fail the flash "
+                                     "kernel's block check (1500 % 256 != "
+                                     "0) in both packages; served on the "
+                                     "registry's \"xla\" backends, as the "
+                                     "reference's Server serves it"}
 
 
 def run_lm_serve(device, smoke: bool = False,
@@ -2313,8 +2605,11 @@ def run_lm_serve(device, smoke: bool = False,
     layers, why = LM_SERVE_CUT.get(arch, (None, None)) if not smoke \
         else (None, None)
     cut = {"n_layers": layers} if layers else {}
-    cfg = _lm_config(smoke, arch, attn_backend="pallas",
-                     ssm_backend="pallas", **cut)
+    registry_why = LM_SERVE_REGISTRY.get(arch)
+    backends = ({} if registry_why else
+                {"attn_backend": "pallas", "ssm_backend": "pallas"})
+    cfg = _lm_config(smoke, arch, **backends, **cut)
+    prompt_lens = _serve_prompts(cfg)
     on_card = device.type == "cuda"
     if on_card:
         _free_device(device)
@@ -2359,8 +2654,7 @@ def run_lm_serve(device, smoke: bool = False,
     for _ in range(2):   # the first run is the counted one; both are checked
         reqs = [Request(i, rng.integers(2, cfg.vocab_size, n, dtype=np.int32),
                         max_new=LM_MAX_NEW)
-                for i, n in enumerate([LM_PROMPT] * (LM_BATCH - 1)
-                                      + [LM_SHORT_PROMPT])]
+                for i, n in enumerate(prompt_lens)]
         seen["logits"].clear()
         reset_launch_counts()
         stats = srv.serve_batch(reqs)
@@ -2385,10 +2679,13 @@ def run_lm_serve(device, smoke: bool = False,
                     f"(want {want}), decode {run['decode_launches']} (want none)")
 
     # Where the time of one prefill and one decode step goes on the card.
+    prefix, _ = srv._init_states(1)
+    positions = prefix + seen["batch"]["tokens"].shape[1]
+    cache_len = prefix + LM_MAX_LEN
     profile = None
     if on_card:
         profile = {}
-        states = lm.init_decode_states(cfg, LM_BATCH, LM_MAX_LEN, device=device)
+        states = lm.init_decode_states(cfg, LM_BATCH, cache_len, device=device)
         with torch.no_grad():
             profile["prefill"], (logits, states) = _profile(
                 device, lambda: lm.prefill(srv.params, cfg, seen["batch"],
@@ -2396,24 +2693,28 @@ def run_lm_serve(device, smoke: bool = False,
             tok = torch.argmax(logits[:, -1], -1)[:, None]
             profile["decode_step"], _ = _profile(
                 device, lambda: lm.decode_step(srv.params, cfg, tok,
-                                               LM_PROMPT, states))
+                                               positions, states))
         del states, logits
 
     # The same prefill through the plain "xla" backends: a finding.
     xcfg = _lm_config(smoke, arch, attn_backend="xla", ssm_backend="xla",
                       **cut)
-    states = lm.init_decode_states(xcfg, LM_BATCH, LM_MAX_LEN, device=device)
+    states = lm.init_decode_states(xcfg, LM_BATCH, cache_len, device=device)
     with torch.no_grad():
         xl, _ = lm.prefill(srv.params, xcfg, seen["batch"], states)
     # ... and through the kernels' plain versions ("pallas_interpret"),
     # which round y_intra where the kernels do: the kernels' own share of
-    # the gap is their distance to these.
-    pcfg = _lm_config(smoke, arch, attn_backend="pallas_interpret",
-                      ssm_backend="pallas_interpret", **cut)
-    states = lm.init_decode_states(pcfg, LM_BATCH, LM_MAX_LEN, device=device)
-    with torch.no_grad():
-        pl, _ = lm.prefill(srv.params, pcfg, seen["batch"], states)
-    del states
+    # the gap is their distance to these.  A config served on "xla" has
+    # none (the plain versions keep the kernels' block check).
+    pl = None
+    if not registry_why:
+        pcfg = _lm_config(smoke, arch, attn_backend="pallas_interpret",
+                          ssm_backend="pallas_interpret", **cut)
+        states = lm.init_decode_states(pcfg, LM_BATCH, cache_len,
+                                       device=device)
+        with torch.no_grad():
+            pl, _ = lm.prefill(srv.params, pcfg, seen["batch"], states)
+        del states
     gap = _logit_gap(seen["logits"][0], xl)
     out = {
         "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
@@ -2422,7 +2723,12 @@ def run_lm_serve(device, smoke: bool = False,
         "params": n_params, "param_count_analytic": cfg.param_count(),
         "weight_bytes": weight_bytes,
         "dtype": cfg.param_dtype, "batch": LM_BATCH,
-        "prompts": [LM_PROMPT] * (LM_BATCH - 1) + [LM_SHORT_PROMPT],
+        "prompts": prompt_lens, "frontend_prefix": prefix,
+        "positions": positions,
+        "backends": {"attn": cfg.attn_backend, "ssm": cfg.ssm_backend},
+        "no_kernel_why": registry_why,
+        "flash_launches_prefill": runs[0]["prefill_launches"].get(
+            "flash_attention", 0),
         "max_new": LM_MAX_NEW, "max_len": LM_MAX_LEN, "init_s": init_s,
         "init_max_memory_allocated": init_peak,
         "prefill_s": runs[0]["prefill_s"], "decode_s": runs[0]["decode_s"],
@@ -2434,8 +2740,9 @@ def run_lm_serve(device, smoke: bool = False,
                         "prefill_launches", "decode_launches")},
         "outputs_head": runs[0]["outputs_head"],
         "prefill_vs_xla": gap,
-        "prefill_plain_vs_xla": _logit_gap(pl, xl),
-        "prefill_vs_plain": _logit_gap(seen["logits"][0], pl),
+        "prefill_plain_vs_xla": None if pl is None else _logit_gap(pl, xl),
+        "prefill_vs_plain": (None if pl is None
+                             else _logit_gap(seen["logits"][0], pl)),
         "max_memory_allocated": peak_memory,   # over the two serves
         "profile": profile,
     }
@@ -2503,7 +2810,11 @@ def run_lm_check(device, smoke: bool = False, arch: str = "zamba2-7b",
     """``arch`` at full width in float32 (Zamba2-7B at 3 superblocks;
     ``layers=None``: full depth), batch 2, prompt 512: prefill logits (and
     the teacher-forced logits of every position) through the kernels
-    against the "xla" path, gated at LM_CHECK_TOL."""
+    against the "xla" path, gated at LM_CHECK_TOL.  An encoder-decoder
+    config also gets seeded frames (WHISPER_CHECK_FRAMES of them at full
+    size); the flash wrapper counts its non-causal launches (the
+    encoder's) apart, so the one prefill gives both the encoder's and the
+    decoder's (causal) counts."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import lm
 
@@ -2512,6 +2823,12 @@ def run_lm_check(device, smoke: bool = False, arch: str = "zamba2-7b",
               cache_dtype="float32")
     if layers:
         kw["n_layers"] = layers
+    reduced = None
+    if _lm_config(smoke, arch).encoder_layers and not smoke:
+        kw["frontend_len"] = WHISPER_CHECK_FRAMES
+        reduced = {"frontend_len": [WHISPER_CHECK_FRAMES,
+                                    _lm_config(False, arch).frontend_len],
+                   "why": LM_SERVE_REGISTRY.get(arch)}
     cfg = _lm_config(smoke, arch, attn_backend="pallas",
                      ssm_backend="pallas", **kw)
     xcfg = _lm_config(smoke, arch, attn_backend="xla", ssm_backend="xla",
@@ -2521,6 +2838,10 @@ def run_lm_check(device, smoke: bool = False, arch: str = "zamba2-7b",
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, LM_PROMPT)),
                              dtype=torch.long, device=device)
     batch = {"tokens": tokens}
+    if cfg.encoder_layers:
+        batch["frames"] = torch.as_tensor(
+            rng.standard_normal((2, cfg.frontend_len, cfg.d_model)) * 0.1,
+            dtype=torch.float32, device=device)
     with torch.no_grad():
         _sync(device)
         reset_launch_counts()
@@ -2547,8 +2868,15 @@ def run_lm_check(device, smoke: bool = False, arch: str = "zamba2-7b",
     out = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
            "dtype": "float32", "batch": 2, "prompt": LM_PROMPT,
            "tol": LM_CHECK_TOL, "prefill_launches": counts,
-           "prefill_vs_xla": _logit_gap(lk, lx),
-           "forward_vs_xla": _logit_gap(fk, fx)}
+           "reduced": reduced}
+    if cfg.encoder_layers:
+        enc = counts.get("flash_attention_noncausal", 0)
+        out.update(encoder_layers=cfg.encoder_layers,
+                   frames=cfg.frontend_len,
+                   flash_noncausal_launches=enc,
+                   flash_causal_launches=counts.get("flash_attention", 0) - enc)
+    out.update(prefill_vs_xla=_logit_gap(lk, lx),
+               forward_vs_xla=_logit_gap(fk, fx))
     del params, lk, lx, fk, fx
     _free_device(device)
     return out
@@ -2605,6 +2933,8 @@ def main() -> int:
         _line("lm_check", run_lm_check(dev, smoke=True))
         _line("lm_check xlstm-350m", run_lm_check(dev, smoke=True,
                                                   arch="xlstm-350m"))
+        _line("lm_check whisper-base", run_lm_check(dev, smoke=True,
+                                                    arch="whisper-base"))
         _close_pool()
         print("cpu rehearsal: no result", file=sys.stderr)
         return 3
@@ -2638,12 +2968,18 @@ def main() -> int:
 
     k = check_warp_ncc(dev, power_w)
     _line("kernel warp_ncc", k)
-    kl = check_lookback_scan(dev)
+    # The scan kernels' bf16 add and matmul entries, under each line.
+    entries = check_scan_entries(dev)
+    kl = {**check_lookback_scan(dev), **entries["lookback_scan"]}
     _line("kernel lookback_scan", kl)
     kt_local, kt_apply = check_tile_kernels(dev)
+    kt_local.update(entries["tile_local_scan"])
+    kt_apply.update(entries["tile_apply"])
     _line("kernel tile_local_scan", kt_local)
     _line("kernel tile_apply", kt_apply)
     kf, kp = check_fused_round(dev)
+    kf.update(entries["fused_round"])
+    kp.update(entries["fused_plan"])
     _line("kernel fused_round", kf)
     kc_local, kc_apply = check_chunk_kernels(dev)
     _line("kernel chunk_local", kc_local)
@@ -2653,6 +2989,8 @@ def main() -> int:
     kfa = check_flash_attention(dev)
     _line("kernel flash_attention", kfa)
     _line("kernel flash_attention d128", kfa["d128"])
+    _line("kernel flash_attention d64", kfa["d64"])
+    _line("kernel flash_attention d64 noncausal", kfa["d64_noncausal"])
     redesign = check_redesigns(dev, k, kfa, kl, kf, kt_apply, kc_local,
                                kc_apply, args.previous_csrc)
     _line("redesign", redesign)
@@ -2689,6 +3027,15 @@ def main() -> int:
     _line("lm_check", check)
     check_x = run_lm_check(dev, arch="xlstm-350m", layers=None)
     _line("lm_check xlstm-350m", check_x)
+    check_w = run_lm_check(dev, arch="whisper-base", layers=None)
+    _line("lm_check whisper-base", check_w)
+    want_w = _lm_config(False, "whisper-base")
+    if (check_w["flash_noncausal_launches"], check_w["flash_causal_launches"]
+            ) != (want_w.encoder_layers, want_w.n_layers):
+        raise AssertionError(f"lm_check whisper-base: flash launches "
+                             f"{check_w['flash_noncausal_launches']} "
+                             f"non-causal, {check_w['flash_causal_launches']} "
+                             "causal")
 
     k["launches"] = series["warp_ncc_launches"]
     k["launches_series_hier"] = hier["warp_ncc_launches"]
@@ -2719,6 +3066,8 @@ def main() -> int:
         kt["launches"] = serve["prefill_launches"].get(kt["name"], 0)
         kt["launches_lm_check"] = check["prefill_launches"].get(kt["name"], 0)
         kt["launches_lm_check_xlstm-350m"] = check_x["prefill_launches"].get(
+            kt["name"], 0)
+        kt["launches_lm_check_whisper-base"] = check_w["prefill_launches"].get(
             kt["name"], 0)
         kt["launches_lm_serve_by_arch"] = {
             arch: run["prefill_launches"].get(kt["name"], 0)

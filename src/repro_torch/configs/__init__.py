@@ -1,12 +1,13 @@
 """Architecture registry: ``get_config(name)`` / ``get_smoke_config(name)``
 (port of ``repro/configs``).
 
-It lists the configurations the port can run, in the reference's order:
-the dense ones (``attn`` blocks), xLSTM-350M (mLSTM and sLSTM blocks) and
-Zamba2-7B (Mamba2 and shared attention blocks).  The reference's MoE
-configurations and those with a frontend wait for their block kinds
-(``ROADMAP.md`` Queue 1, the LM configurations and block kinds); asking for
-one of them, or any other name, raises ``NotImplementedError``.
+It lists the reference's ten configurations, in its order: the dense ones
+(``attn`` blocks), xLSTM-350M (mLSTM and sLSTM blocks), Zamba2-7B (Mamba2
+and shared attention blocks), the two MoE ones (``moe`` blocks) and the two
+with a frontend (InternVL2-1B's patch prefix, Whisper-base's encoder and
+cross-attention).  Full configs run at their published widths; smoke
+configs are reduced same-family models for the CPU.  An unknown name
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -23,6 +24,10 @@ _ARCHS = [
     "qwen2_72b",
     "xlstm_350m",
     "zamba2_7b",
+    "phi3_5_moe_42b",
+    "arctic_480b",
+    "internvl2_1b",
+    "whisper_base",
 ]
 
 ALIASES = {
@@ -32,6 +37,10 @@ ALIASES = {
     "qwen2-72b": "qwen2_72b",
     "xlstm-350m": "xlstm_350m",
     "zamba2-7b": "zamba2_7b",
+    "phi3.5-moe-42b-a6.6b": "phi3_5_moe_42b",
+    "arctic-480b": "arctic_480b",
+    "internvl2-1b": "internvl2_1b",
+    "whisper-base": "whisper_base",
 }
 
 
@@ -43,9 +52,7 @@ def _module(name: str):
     mod_name = ALIASES.get(name, name.replace("-", "_").replace(".", "_"))
     if mod_name not in _ARCHS:
         raise NotImplementedError(
-            f"config {name!r} is not ported (the port has {list(ALIASES)}; "
-            "the reference's MoE and frontend configurations wait for the "
-            "LM configurations and block kinds, ROADMAP.md Queue 1)"
+            f"no config {name!r} (the registry has {list(ALIASES)})"
         )
     return import_module(f"repro_torch.configs.{mod_name}")
 

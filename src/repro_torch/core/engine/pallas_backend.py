@@ -38,7 +38,7 @@ from repro_torch.kernels._tiling import (
     plan_operands,
     round_sources,
 )
-from repro_torch.kernels.op_table import TABLE, KernelOpError, check_kernel_row
+from repro_torch.kernels.op_table import check_kernel_row
 from repro_torch.kernels.tile_scan import (
     fused_plan,
     fused_round,
@@ -102,15 +102,11 @@ def _plan_operands(plan: ExecutionPlan, device, cluster: int) -> PlanOperands:
 
 
 def _check_on_card(op: Op, y2: torch.Tensor) -> None:
-    """On CUDA the kernels run only the table's ops on float32 rows."""
+    """On CUDA the kernels run only the table's ops, on float32 rows or
+    (add, max) bfloat16 ones."""
     if y2.device.type == "cpu":
         return
-    if y2.dtype != torch.float32:
-        raise KernelOpError(
-            f"the pallas backend's kernels take float32 rows, got {y2.dtype}; "
-            f"the scan kernels carry: {TABLE}"
-        )
-    check_kernel_row(op, y2.shape[1])
+    check_kernel_row(op, y2.shape[1], dtype=y2.dtype)
 
 
 def exec_pallas(op: Op, plan: ExecutionPlan, xs, **_) -> Tuple[Any, Any]:

@@ -44,7 +44,7 @@ import torch
 
 from repro_torch.core._tree import tree_flatten, tree_unflatten
 
-from .op_table import kernel_op_of
+from .op_table import kernel_op_of, matrix_side
 
 Op = Callable[[Any, Any], Any]
 
@@ -379,7 +379,8 @@ def packed_op(op: Op, spec: PackSpec) -> Op:
     Unpack → apply → repack is reshapes and concats only, so the packed
     operator is bit-identical to the original and stays associative.  It
     keeps ``op``'s kernel-table entry when the packed layout is the one
-    that entry reads (``rigid_compose``: the ``{"angle", "shift"}`` dict).
+    that entry reads (``rigid_compose``: the ``{"angle", "shift"}`` dict;
+    ``matmul``: one leaf of (m, m) matrices, packed row-major).
     """
 
     def pop(a2, b2):
@@ -396,6 +397,10 @@ def packed_op(op: Op, spec: PackSpec) -> Op:
     if name == "rigid_compose" and not (
         spec.treedef is not None and spec.treedef[0] == "dict"
         and spec.treedef[1] == ("angle", "shift") and spec.widths == (1, 2)
+    ):
+        name = None
+    if name == "matmul" and not (
+        len(spec.tails) == 1 and matrix_side(spec.tails[0]) is not None
     ):
         name = None
     pop.kernel_op = name

@@ -14,13 +14,19 @@
 //
 // A block reads its chunk once: 16-byte loads, neighbouring threads on
 // neighbouring addresses, into shared memory (one piece of up to
-// kPieceRows rows); each thread then folds its run of contiguous rows from
+// kPieceRows rows, half that for rows wider than 12 lanes); each thread
+// then folds its run of contiguous rows from
 // there, the block scans the runs' aggregates, and after the lookback each
 // thread writes its scanned rows back to shared memory, from where the
-// block stores them with 16-byte stores.  A chunk longer than kPieceRows
-// rows (only a tile count far below the card's default gives one) is
+// block stores them with 16-byte stores.  A chunk longer than a piece
+// (only a tile count far below the card's default gives one, or wide
+// rows) is
 // scanned piece by piece: its total first, then, after the lookback, each
 // piece again, so such a chunk reads x twice.
+//
+// x, y, the seed and the segment totals are rows of the storage type T
+// (float or bf16, scan_ops.cuh); shared memory and the chunk board hold
+// float32.
 //
 // The lookback is warp-wide: warp 0 reads the flags of 32 predecessors at
 // once, finds the nearest PREFIX by a ballot, folds the AGG and PREFIX
@@ -32,6 +38,7 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "scan_ops.cuh"
 
@@ -42,6 +49,14 @@ constexpr int kAgg = 1;
 constexpr int kPrefix = 2;
 constexpr int kItems = 16;                       // rows a thread holds
 constexpr int kPieceRows = kThreads * kItems;    // 4096
+
+// Rows a piece holds: kPieceRows, or half for rows wider than 12 lanes
+// (the matmul entry's 16 and 17), whose 4096 rows would not fit the
+// shared memory.
+template <int W>
+__host__ __device__ constexpr int piece_rows() {
+  return W <= 12 ? kPieceRows : kPieceRows / 2;
+}
 
 __device__ __forceinline__ int load_acquire(const int* p) {
   int v;
@@ -142,6 +157,28 @@ __device__ __forceinline__ void load_floats(float* buf,
   }
 }
 
+// The same for bfloat16 elements, eight a 16-byte word, widened to float.
+template <int THREADS = kThreads, bool PAD = true>
+__device__ __forceinline__ void load_floats(float* buf,
+                                            const bf16* __restrict__ src,
+                                            int n) {
+  const uintptr_t a0 = reinterpret_cast<uintptr_t>(src);
+  const uint4* base = reinterpret_cast<const uint4*>(a0 & ~(uintptr_t)15);
+  const int off = (int)((a0 & 15) >> 1);
+  const int nq = (off + n + 7) >> 3;
+  for (int qi = threadIdx.x; qi < nq; qi += THREADS) {
+    const uint4 w = __ldg(base + qi);
+    bf16 e[8];
+    memcpy(e, &w, 16);
+    const int i0 = 8 * qi - off;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int i = i0 + j;
+      if (i >= 0 && i < n) buf[smem_index<PAD>(i)] = __bfloat162float(e[j]);
+    }
+  }
+}
+
 // buf's floats [0 .. n) to dst: 16-byte stores where a word lies wholly
 // inside, single floats at the two ends (the neighbours' words belong to
 // other blocks).
@@ -163,6 +200,38 @@ __device__ __forceinline__ void store_floats(float* __restrict__ dst,
       for (int j = 0; j < 4; ++j) {
         const int i = i0 + j;
         if (i >= 0 && i < n) dst[i] = buf[smem_index<PAD>(i)];
+      }
+    }
+  }
+}
+
+// The same to bfloat16 elements (each float rounded to nearest even),
+// eight a 16-byte word.
+template <int THREADS = kThreads, bool PAD = true>
+__device__ __forceinline__ void store_floats(bf16* __restrict__ dst,
+                                             const float* buf, int n) {
+  const uintptr_t a0 = reinterpret_cast<uintptr_t>(dst);
+  uint4* base = reinterpret_cast<uint4*>(a0 & ~(uintptr_t)15);
+  const int off = (int)((a0 & 15) >> 1);
+  const int nq = (off + n + 7) >> 3;
+  for (int qi = threadIdx.x; qi < nq; qi += THREADS) {
+    const int i0 = 8 * qi - off;
+    if (i0 >= 0 && i0 + 7 < n) {
+      bf16 e[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        e[j] = __float2bfloat16_rn(buf[smem_index<PAD>(i0 + j)]);
+      }
+      uint4 w;
+      memcpy(&w, e, 16);
+      base[qi] = w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int i = i0 + j;
+        if (i >= 0 && i < n) {
+          dst[i] = __float2bfloat16_rn(buf[smem_index<PAD>(i)]);
+        }
       }
     }
   }
@@ -192,8 +261,8 @@ __device__ __forceinline__ void thread_rows(int m, int& r0, int& r1) {
 
 // Load piece rows [0, m) of xt into buf and scan it: each thread's
 // exclusive prefix within the piece and the piece's total.
-template <class C, int W>
-__device__ __forceinline__ void scan_piece(float* buf, const float* xt, int m,
+template <class C, int W, class T>
+__device__ __forceinline__ void scan_piece(float* buf, const T* xt, int m,
                                            Row<W>& texcl, bool& texcl_has,
                                            Row<W>& total, bool& total_has) {
   __syncthreads();   // the previous piece's stores have read buf
@@ -211,8 +280,8 @@ __device__ __forceinline__ void scan_piece(float* buf, const float* xt, int m,
 
 // Fold run (the rows before this thread's) over the thread's rows of the
 // piece in buf, in place, then store the piece to yt.
-template <class C, int W>
-__device__ __forceinline__ void emit_piece(float* buf, float* yt, int m,
+template <class C, int W, class T>
+__device__ __forceinline__ void emit_piece(float* buf, T* yt, int m,
                                            Row<W> run, bool run_has) {
   int r0, r1;
   thread_rows(m, r0, r1);
@@ -275,20 +344,21 @@ __device__ __forceinline__ bool warp_lookback(int end, int first,
   }
 }
 
-template <int OP, int D, bool MASKED>
+template <int OP, int D, bool MASKED, class T>
 __global__ void __launch_bounds__(kThreads)
-chained_scan_kernel(const float* __restrict__ x,     // (rows, W)
-                    const float* __restrict__ seed,  // (W) or null
-                    float* __restrict__ y,           // (rows, W)
+chained_scan_kernel(const T* __restrict__ x,         // (rows, W)
+                    const T* __restrict__ seed,      // (W) or null
+                    T* __restrict__ y,               // (rows, W)
                     int* status,                     // (chunks, 2), zeroed
                     float* aggs,                     // (chunks, W)
                     float* prefs,                    // (chunks, W)
-                    float* totals,                   // (segments, W) or null
+                    T* totals,                       // (segments, W) or null
                     unsigned* counter,               // (1), zeroed
                     int* walk_steps,                 // (chunks) or null
                     int seg_rows, int chunk_rows, int chunks_per_seg) {
-  using C = Combine<OP, D, MASKED>;
+  using C = Combine<OP, D, MASKED, T>;
   constexpr int W = C::W;
+  constexpr int P = piece_rows<W>();
   extern __shared__ float buf[];
   __shared__ int s_chunk;
   __shared__ Row<W> s_excl;
@@ -302,18 +372,18 @@ chained_scan_kernel(const float* __restrict__ x,     // (rows, W)
   const int c = chunk - first;
   const int k = min(chunk_rows, seg_rows - c * chunk_rows);
   const size_t row0 = (size_t)seg * seg_rows + (size_t)c * chunk_rows;
-  const float* xt = x + row0 * W;
-  float* yt = y + row0 * W;
-  const int pieces = (k + kPieceRows - 1) / kPieceRows;
+  const T* xt = x + row0 * W;
+  T* yt = y + row0 * W;
+  const int pieces = (k + P - 1) / P;
 
   // The chunk's total; a one-piece chunk keeps its rows in buf.
   Row<W> texcl{}, total{};
   bool texcl_has = false, total_has = false;
   for (int p = 0; p < pieces; ++p) {
-    const int m = min(kPieceRows, k - p * kPieceRows);
+    const int m = min(P, k - p * P);
     Row<W> pt{};
     bool pt_has;
-    scan_piece<C, W>(buf, xt + (size_t)p * kPieceRows * W, m, texcl,
+    scan_piece<C, W>(buf, xt + (size_t)p * P * W, m, texcl,
                      texcl_has, pt, pt_has);
     maybe_combine<C, W>(total, total_has, pt, pt_has);
   }
@@ -325,7 +395,7 @@ chained_scan_kernel(const float* __restrict__ x,     // (rows, W)
     if (lane == 0) store_row<W>(aggs + (size_t)chunk * W, total);
     if (c == 0) {
       if (seed != nullptr && seg == 0) {
-        ex = load_row<W>(seed);
+        ex = load_row<W, T>(seed);
         ex_has = true;
       }
     } else {
@@ -341,7 +411,7 @@ chained_scan_kernel(const float* __restrict__ x,     // (rows, W)
       store_row<W>(prefs + (size_t)chunk * W, incl);
       publish<W>(status, chunk, kPrefix, incl);
       if (totals != nullptr && c == chunks_per_seg - 1) {
-        store_row<W>(totals + (size_t)seg * W, incl);
+        store_row<W, T>(totals + (size_t)seg * W, incl);
       }
       if (ex_has) s_excl = ex;
       s_excl_has = ex_has;
@@ -360,36 +430,35 @@ chained_scan_kernel(const float* __restrict__ x,     // (rows, W)
     return;
   }
   for (int p = 0; p < pieces; ++p) {
-    const int m = min(kPieceRows, k - p * kPieceRows);
+    const int m = min(P, k - p * P);
     Row<W> pt{};
     bool pt_has;
-    scan_piece<C, W>(buf, xt + (size_t)p * kPieceRows * W, m, texcl,
+    scan_piece<C, W>(buf, xt + (size_t)p * P * W, m, texcl,
                      texcl_has, pt, pt_has);
     Row<W> run = carry;
     bool run_has = carry_has;
     maybe_combine<C, W>(run, run_has, texcl, texcl_has);
-    emit_piece<C, W>(buf, yt + (size_t)p * kPieceRows * W, m, run, run_has);
+    emit_piece<C, W>(buf, yt + (size_t)p * P * W, m, run, run_has);
     maybe_combine<C, W>(carry, carry_has, pt, pt_has);
   }
 }
 
 // Launch chained_scan_kernel on `blocks` chunks with the shared memory one
 // piece needs; returns a cudaError_t.
-template <int OP, int D, bool MASKED>
-int launch_chained(int blocks, cudaStream_t st, const float* x,
-                   const float* seed, float* y, int* status, float* aggs,
-                   float* prefs, float* totals, unsigned* counter,
-                   int* walk_steps, int seg_rows, int chunk_rows,
-                   int chunks_per_seg) {
-  constexpr int W = Combine<OP, D, MASKED>::W;
-  const size_t smem = piece_smem_bytes<W>(min(chunk_rows, kPieceRows));
+template <int OP, int D, bool MASKED, class T>
+int launch_chained(int blocks, cudaStream_t st, const T* x, const T* seed,
+                   T* y, int* status, float* aggs, float* prefs, T* totals,
+                   unsigned* counter, int* walk_steps, int seg_rows,
+                   int chunk_rows, int chunks_per_seg) {
+  constexpr int W = Combine<OP, D, MASKED, T>::W;
+  const size_t smem = piece_smem_bytes<W>(min(chunk_rows, piece_rows<W>()));
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        chained_scan_kernel<OP, D, MASKED>,
+        chained_scan_kernel<OP, D, MASKED, T>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  chained_scan_kernel<OP, D, MASKED><<<blocks, kThreads, smem, st>>>(
+  chained_scan_kernel<OP, D, MASKED, T><<<blocks, kThreads, smem, st>>>(
       x, seed, y, status, aggs, prefs, totals, counter, walk_steps, seg_rows,
       chunk_rows, chunks_per_seg);
   return (int)cudaGetLastError();

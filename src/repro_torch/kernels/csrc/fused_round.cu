@@ -6,8 +6,9 @@
 // so the paper's circuits (Sklansky, Brent-Kung, Ladner-Fischer,
 // dissemination, Blelloch) run as rounds on the device.
 //
-// What a round computes, for an (n, D) float32 buffer y, under one operator
-// of scan_ops.cuh's table, op(earlier, later):
+// What a round computes, for an (n, D) float32 (or, for add and max,
+// bfloat16) buffer y, under one operator of scan_ops.cuh's table,
+// op(earlier, later):
 //   y'[dst] = op(y[a], y[b])   for a combine,
 //   y'[dst] = y[a]             for a move,
 //   y'[r]   = y[r]             for every other (kept) row.
@@ -84,19 +85,19 @@ namespace {
 
 using namespace scan_ops;
 
-template <int OP, int D>
+template <int OP, int D, class T>
 __global__ void __launch_bounds__(kThreads)
-fused_round_kernel(const float* __restrict__ y,   // (n, D)
+fused_round_kernel(const T* __restrict__ y,       // (n, D)
                    const int2* __restrict__ src,  // (n)
-                   float* __restrict__ out,       // (n, D)
+                   T* __restrict__ out,           // (n, D)
                    int n) {
-  using C = Combine<OP, D, false>;
+  using C = Combine<OP, D, false, T>;
   const int r = blockIdx.x * kThreads + threadIdx.x;
   if (r >= n) return;
   const int2 s = src[r];
-  Row<D> v = load_row<D>(y + (long long)s.x * D);
-  if (s.y >= 0) v = C::apply(v, load_row<D>(y + (long long)s.y * D));
-  store_row<D>(out + (long long)r * D, v);
+  Row<D> v = load_row<D, T>(y + (long long)s.x * D);
+  if (s.y >= 0) v = C::apply(v, load_row<D, T>(y + (long long)s.y * D));
+  store_row<D, T>(out + (long long)r * D, v);
 }
 
 constexpr int kPlanThreads = 1024;   // threads a CTA of fused_plan
@@ -246,19 +247,19 @@ __device__ __forceinline__ void apply_batch(const int3 (&t)[U], uint32_t base,
   }
 }
 
-template <int OP, int D>
+template <int OP, int D, class T>
 __global__ void __launch_bounds__(kPlanThreads)
-fused_plan_kernel(const float* __restrict__ x,     // (n, D)
+fused_plan_kernel(const T* __restrict__ x,         // (n, D)
                   const int* __restrict__ ops,     // (entries, 3)
                   const int* __restrict__ offs,    // (rounds * C + 1)
                   const int* __restrict__ flags,   // (rounds)
-                  float* __restrict__ y,           // (n, D)
-                  float* __restrict__ total,       // (D) or null
+                  T* __restrict__ y,               // (n, D)
+                  T* __restrict__ total,           // (D) or null
                   int n, int rows_per, int stride, int rounds,
                   int cap_round, int cap_wire) {
-  using Cb = Combine<OP, D, false>;
+  using Cb = Combine<OP, D, false, T>;
   // Entries a thread holds: fewer for wider rows (64 registers a thread).
-  constexpr int U = D == 1 ? kPlanBatch : (kPlanBatch + 1) / 2;
+  constexpr int U = D == 1 ? kPlanBatch : D <= 4 ? (kPlanBatch + 1) / 2 : 1;
   constexpr int kStep = U * kPlanThreads;
   extern __shared__ __align__(16) float smem[];
   const int csize = (int)gridDim.x;            // the grid is one cluster
@@ -306,7 +307,7 @@ fused_plan_kernel(const float* __restrict__ x,     // (n, D)
     float* const nxt = (k & 1) ? buf0 : buf1;
     const uint32_t cur_base = base0 + 4u * (uint32_t)((k & 1) * stride);
     if (k == cap_round && cap_wire / rows_per == (int)rank && tid < D) {
-      total[tid] = cur[(cap_wire - row0) * D + tid];
+      total[tid] = from_f32<T>(cur[(cap_wire - row0) * D + tid]);
     }
     if (k > 0) {
       // Copy forward what round k-1 wrote and round k does not write: its
@@ -360,7 +361,7 @@ fused_plan_kernel(const float* __restrict__ x,     // (n, D)
 
   const float* fin = (rounds & 1) ? buf1 : buf0;
   if (cap_round == rounds && cap_wire / rows_per == (int)rank && tid < D) {
-    total[tid] = fin[(cap_wire - row0) * D + tid];
+    total[tid] = from_f32<T>(fin[(cap_wire - row0) * D + tid]);
   }
   if (rows > 0) {
     store_floats<kPlanThreads, false>(y + (size_t)row0 * D, fin, rows * D);
@@ -374,12 +375,12 @@ int fail(cudaError_t e) {
   return (int)e;
 }
 
-template <int OP, int D>
-int launch_plan(const float* x, const int* ops, const int* offs,
-                const int* flags, float* y, float* total, int n, int rows_per,
+template <int OP, int D, class T>
+int launch_plan(const T* x, const int* ops, const int* offs,
+                const int* flags, T* y, T* total, int n, int rows_per,
                 int stride, int rounds, int cap_round, int cap_wire,
                 int cluster, cudaStream_t st) {
-  auto kern = fused_plan_kernel<OP, D>;
+  auto kern = fused_plan_kernel<OP, D, T>;
   const size_t smem = 2 * (size_t)stride * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -413,8 +414,8 @@ int launch_plan(const float* x, const int* ops, const int* offs,
 
 }  // namespace
 
-// op, d: an entry of scan_ops.cuh's table; y and out (n, d) float32, out not
-// y; src (n, 2) int32, 8-byte aligned, with 0 <= src[r][0] < n and
+// op, d: an entry of scan_ops.cuh's table; y and out (n, d) float32, or
+// bfloat16 where op carries kStorageBf16, out not y; src (n, 2) int32, 8-byte aligned, with 0 <= src[r][0] < n and
 // src[r][1] < n.  Returns a cudaError_t, or cudaErrorInvalidValue for an
 // (op, d) outside the table.
 extern "C" int fused_round_launch(int op, int d, const void* y,
@@ -424,15 +425,18 @@ extern "C" int fused_round_launch(int op, int d, const void* y,
   if (n < 1 || y == out) return (int)cudaErrorInvalidValue;
   return dispatch_entry(op, d, [&](auto e) {
     using E = decltype(e);
-    fused_round_kernel<E::op, E::d>
+    using T = typename E::T;
+    fused_round_kernel<E::op, E::d, T>
         <<<(n + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-            static_cast<const float*>(y), static_cast<const int2*>(src),
-            static_cast<float*>(out), n);
+            static_cast<const T*>(y), static_cast<const int2*>(src),
+            static_cast<T*>(out), n);
     return (int)cudaGetLastError();
   });
 }
 
-// The whole plan on one cluster of `cluster` CTAs.  x and y (n, d) float32;
+// The whole plan on one cluster of `cluster` CTAs.  x, y and total (n, d)
+// float32, or bfloat16 where op carries kStorageBf16 (the shared buffers
+// hold float32 either way);
 // ops (entries, 3) int32 triples (dst, a, b), b = -1 for a move, grouped by
 // round and then by the CTA owning dst (dst / rows_per); offs (rounds *
 // cluster + 1) int32, the triples of round k and CTA q being
@@ -464,11 +468,12 @@ extern "C" int fused_plan_launch(int op, int d, const void* x,
   }
   return dispatch_entry(op, d, [&](auto e) {
     using E = decltype(e);
-    return launch_plan<E::op, E::d>(
-        static_cast<const float*>(x), static_cast<const int*>(ops),
+    using T = typename E::T;
+    return launch_plan<E::op, E::d, T>(
+        static_cast<const T*>(x), static_cast<const int*>(ops),
         static_cast<const int*>(offs), static_cast<const int*>(flags),
-        static_cast<float*>(y),
-        static_cast<float*>(total), n, rows_per, stride, rounds, cap_round,
+        static_cast<T*>(y),
+        static_cast<T*>(total), n, rows_per, stride, rounds, cap_round,
         cap_wire, cluster, st);
   });
 }

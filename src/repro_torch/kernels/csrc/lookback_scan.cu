@@ -4,7 +4,8 @@
 // kernel behind the engine's "decoupled" backend (refine=False series
 // composition, cheap array scans, seeded and masked array scans).
 //
-// What it computes: the inclusive scan y of x (t*k rows of W floats) under
+// What it computes: the inclusive scan y of x (t*k rows of W float32 or,
+// for add and max, bfloat16 values) under
 // one operator of scan_ops.cuh, optionally seeded (the seed row is tile 0's
 // exclusive prefix), and the published tile board: status (t) int32 flags,
 // aggs (t, W) tile aggregates, prefs (t, W) inclusive tile prefixes.
@@ -67,31 +68,34 @@ namespace {
 
 using namespace scan_ops;
 
-template <int OP, int D, bool MASKED>
+template <int OP, int D, bool MASKED, class T>
 int launch(const void* x, const void* seed, void* y, void* status, void* aggs,
            void* prefs, void* counter, void* steps, int t, int k,
            cudaStream_t st) {
   // The whole array is one segment; a tile is a chunk.
-  return launch_chained<OP, D, MASKED>(
-      t, st, static_cast<const float*>(x), static_cast<const float*>(seed),
-      static_cast<float*>(y), static_cast<int*>(status),
-      static_cast<float*>(aggs), static_cast<float*>(prefs), nullptr,
+  return launch_chained<OP, D, MASKED, T>(
+      t, st, static_cast<const T*>(x), static_cast<const T*>(seed),
+      static_cast<T*>(y), static_cast<int*>(status),
+      static_cast<float*>(aggs), static_cast<float*>(prefs),
+      static_cast<T*>(nullptr),
       static_cast<unsigned*>(counter), static_cast<int*>(steps), t * k, k, t);
 }
 
-template <int OP, int D>
+template <int OP, int D, class T>
 int launch_masked(int masked, const void* x, const void* seed, void* y,
                   void* status, void* aggs, void* prefs, void* counter,
                   void* steps, int t, int k, cudaStream_t st) {
-  return masked ? launch<OP, D, true>(x, seed, y, status, aggs, prefs, counter,
-                                      steps, t, k, st)
-                : launch<OP, D, false>(x, seed, y, status, aggs, prefs,
-                                       counter, steps, t, k, st);
+  return masked ? launch<OP, D, true, T>(x, seed, y, status, aggs, prefs,
+                                         counter, steps, t, k, st)
+                : launch<OP, D, false, T>(x, seed, y, status, aggs, prefs,
+                                          counter, steps, t, k, st);
 }
 
 }  // namespace
 
-// op: an entry of scan_ops.cuh's table; d: operator lanes (the row holds
+// op: an entry of scan_ops.cuh's table (x, seed and y bfloat16 where it
+// carries kStorageBf16, else float32; aggs and prefs float32 always); d:
+// operator lanes (the row holds
 // d + masked); status: (t, 2) int32, zeroed, column 0 the tiles' flags
 // when the kernel is done; seed: null for an unseeded scan; steps: null,
 // or (t) int32
@@ -106,8 +110,8 @@ extern "C" int lookback_scan_launch(int op, int d, int masked, const void* x,
   if (t < 1 || k < 1) return (int)cudaErrorInvalidValue;
   return dispatch_entry(op, d, [&](auto e) {
     using E = decltype(e);
-    return launch_masked<E::op, E::d>(masked, x, seed, y, status, aggs, prefs,
-                                      counter, steps, t, k, st);
+    return launch_masked<E::op, E::d, typename E::T>(
+        masked, x, seed, y, status, aggs, prefs, counter, steps, t, k, st);
   });
 }
 

@@ -10,6 +10,17 @@
 //             angle = a0 + b0, shift = R(b0) (a1, a2) + (b1, b2)
 //   kOpMax    max(a, b) lane by lane, D lanes (1..4); a NaN in either
 //             operand gives NaN, as torch.maximum does (fmaxf would drop it)
+//   kOpMatmul m x m matrices packed row-major (D = m * m, m = 1..4):
+//             op(earlier, later) = later @ earlier, each entry a sum over
+//             k in order, float32 only
+//
+// Storage: rows are float32, or, for add and max, bfloat16 (the op code
+// carries kStorageBf16).  A bfloat16 row is read into float32 registers
+// and every combine's result is rounded to bfloat16 at once, as the
+// reference's Pallas kernels round each bf16 operator application
+// (kernels/op_table.py says how that was found); scratch (the lookback
+// board, fused_plan's shared buffers) stays float32, holding values that
+// are already bfloat16-exact.
 //
 // dispatch_entry maps the (op, D) a wrapper passes at run time to the
 // compiled entry, so each kernel's C interface lists the table once.
@@ -27,14 +38,40 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace scan_ops {
 
 constexpr int kOpAdd = 0;
 constexpr int kOpRigid = 1;
 constexpr int kOpMax = 2;
+constexpr int kOpMatmul = 3;
+// Added to an op code: the rows are stored as bfloat16.
+constexpr int kStorageBf16 = 16;
+
+using bf16 = __nv_bfloat16;
+
+template <class T>
+__device__ __forceinline__ float to_f32(T v) {
+  if constexpr (std::is_same_v<T, float>) {
+    return v;
+  } else {
+    return __bfloat162float(v);
+  }
+}
+
+template <class T>
+__device__ __forceinline__ T from_f32(float v) {
+  if constexpr (std::is_same_v<T, float>) {
+    return v;
+  } else {
+    return __float2bfloat16_rn(v);
+  }
+}
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -45,27 +82,36 @@ struct Row {
   float v[W];
 };
 
-template <int W>
-__device__ __forceinline__ Row<W> load_row(const float* p) {
+// A row of storage type T (float or bf16) into float32 registers, and
+// back.
+template <int W, class T = float>
+__device__ __forceinline__ Row<W> load_row(const T* p) {
   Row<W> r;
 #pragma unroll
-  for (int j = 0; j < W; ++j) r.v[j] = p[j];
+  for (int j = 0; j < W; ++j) r.v[j] = to_f32<T>(p[j]);
   return r;
 }
 
 // Load that bypasses L1: for values another block published.
-template <int W>
-__device__ __forceinline__ Row<W> load_row_cg(const float* p) {
+template <int W, class T = float>
+__device__ __forceinline__ Row<W> load_row_cg(const T* p) {
   Row<W> r;
 #pragma unroll
-  for (int j = 0; j < W; ++j) r.v[j] = __ldcg(p + j);
+  for (int j = 0; j < W; ++j) {
+    if constexpr (std::is_same_v<T, float>) {
+      r.v[j] = __ldcg(p + j);
+    } else {
+      r.v[j] = to_f32<T>(__ushort_as_bfloat16(
+          __ldcg(reinterpret_cast<const unsigned short*>(p) + j)));
+    }
+  }
   return r;
 }
 
-template <int W>
-__device__ __forceinline__ void store_row(float* p, const Row<W>& r) {
+template <int W, class T = float>
+__device__ __forceinline__ void store_row(T* p, const Row<W>& r) {
 #pragma unroll
-  for (int j = 0; j < W; ++j) p[j] = r.v[j];
+  for (int j = 0; j < W; ++j) p[j] = from_f32<T>(r.v[j]);
 }
 
 // The operator on lanes 0..D-1 of W-lane rows.
@@ -117,41 +163,87 @@ struct Op<kOpMax, D> {
   }
 };
 
-// A table entry as a type: the operator code and its lanes.
-template <int OP_, int D_>
+// The side of an m x m matrix packed in D = m * m lanes.
+__host__ __device__ constexpr int matrix_side(int d) {
+  return d == 1 ? 1 : d == 4 ? 2 : d == 9 ? 3 : 4;
+}
+
+template <int D>
+struct Op<kOpMatmul, D> {
+  static constexpr int M = matrix_side(D);
+  static_assert(M * M == D, "matmul rows hold m x m matrices, m = 1..4");
+  template <int W>
+  __device__ __forceinline__ static Row<W> apply(const Row<W>& a,
+                                                 const Row<W>& b) {
+    Row<W> r;
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+#pragma unroll
+      for (int j = 0; j < M; ++j) {
+        float s = b.v[i * M] * a.v[j];
+#pragma unroll
+        for (int k = 1; k < M; ++k) s = s + b.v[i * M + k] * a.v[k * M + j];
+        r.v[i * M + j] = s;
+      }
+    }
+    return r;
+  }
+};
+
+// A table entry as a type: the operator code, its lanes and the rows'
+// storage type.
+template <int OP_, int D_, class T_ = float>
 struct Entry {
   static constexpr int op = OP_;
   static constexpr int d = D_;
+  using T = T_;
 };
 
-template <int OP, class F>
+template <int OP, class T, class F>
 int dispatch_lanes(int d, F& f) {
   switch (d) {
-    case 1: return f(Entry<OP, 1>{});
-    case 2: return f(Entry<OP, 2>{});
-    case 3: return f(Entry<OP, 3>{});
-    case 4: return f(Entry<OP, 4>{});
+    case 1: return f(Entry<OP, 1, T>{});
+    case 2: return f(Entry<OP, 2, T>{});
+    case 3: return f(Entry<OP, 3, T>{});
+    case 4: return f(Entry<OP, 4, T>{});
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// Calls f(Entry<op, d>{}) for an (op, d) of the table and returns what it
-// returns; cudaErrorInvalidValue for anything else.
+// Calls f(Entry<op, d, T>{}) for an (op, d) of the table and returns what
+// it returns; cudaErrorInvalidValue for anything else.
 template <class F>
 int dispatch_entry(int op, int d, F&& f) {
-  if (op == kOpAdd) return dispatch_lanes<kOpAdd>(d, f);
-  if (op == kOpMax) return dispatch_lanes<kOpMax>(d, f);
+  if (op == kOpAdd) return dispatch_lanes<kOpAdd, float>(d, f);
+  if (op == kOpMax) return dispatch_lanes<kOpMax, float>(d, f);
   if (op == kOpRigid && d == 3) return f(Entry<kOpRigid, 3>{});
+  if (op == kOpMatmul) {
+    switch (d) {
+      case 1: return f(Entry<kOpMatmul, 1>{});
+      case 4: return f(Entry<kOpMatmul, 4>{});
+      case 9: return f(Entry<kOpMatmul, 9>{});
+      case 16: return f(Entry<kOpMatmul, 16>{});
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (op == kOpAdd + kStorageBf16) return dispatch_lanes<kOpAdd, bf16>(d, f);
+  if (op == kOpMax + kStorageBf16) return dispatch_lanes<kOpMax, bf16>(d, f);
   return (int)cudaErrorInvalidValue;
 }
 
-// One table entry, optionally lifted over the identity-flag lane.
-template <int OP, int D, bool MASKED>
+// One table entry, optionally lifted over the identity-flag lane.  With
+// bfloat16 storage (T) the operator's result is rounded to it at once;
+// max needs no rounding (it picks one of two bf16-exact operands).
+template <int OP, int D, bool MASKED, class T = float>
 struct Combine {
   static constexpr int W = D + (MASKED ? 1 : 0);
   __device__ __forceinline__ static Row<W> apply(const Row<W>& a,
                                                  const Row<W>& b) {
     Row<W> r = Op<OP, D>::template apply<W>(a, b);
+    if constexpr (!std::is_same_v<T, float> && OP != kOpMax) {
+#pragma unroll
+      for (int j = 0; j < D; ++j) r.v[j] = to_f32<T>(from_f32<T>(r.v[j]));
+    }
     if constexpr (MASKED) {
       const float fa = a.v[D];
       const float fb = b.v[D];

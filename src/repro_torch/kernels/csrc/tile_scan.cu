@@ -22,7 +22,8 @@
 //    writes the tile's total.  The chunk board (status, aggregates,
 //    prefixes) is scratch the wrapper allocates.
 //  * tile_apply: out = op(seeds[tile], local) for tile > 0 and local for
-//    tile 0, streamed.  A flat 1-D grid of blocks, each one chunk of one
+//    tile 0, streamed (16-byte words: four float32 or eight bfloat16
+//    elements).  A flat 1-D grid of blocks, each one chunk of one
 //    tile (one division a block, none a row; grid.y could not carry the
 //    thousands of tiles of device phase 1), the tile's seed row loaded once
 //    a block into registers.  For the lane-wise entries (add, max) the
@@ -30,7 +31,8 @@
 //    loads in flight a thread; float f's seed lane is f % d (every tile
 //    starts on a multiple of d), and the floats before the tile's first
 //    whole word and after its last are done one at a time.  rigid_compose
-//    combines whole 3-float rows: a chunk of kApplyRows rows goes through
+//    and matmul combine whole rows: a chunk of 1,024 rows (512 of 16 lanes)
+//    goes through
 //    shared memory by chained_scan.cuh's 16-byte loader and storer.  Tile 0
 //    takes the same path without the operator.
 
@@ -42,50 +44,59 @@ namespace {
 
 using namespace scan_ops;
 
-constexpr int kApplyLoads = 4;                       // float4s in flight
-constexpr int kApplyQuads = kThreads * kApplyLoads;  // float4s a block
-constexpr int kApplyRows = 1024;                     // rows a block (rigid)
+constexpr int kApplyLoads = 4;                       // 16-byte words in flight
+constexpr int kApplyQuads = kThreads * kApplyLoads;  // words a block
 
-// op(seed, v) on one lane of a lane-wise entry.
-template <int OP>
+// Rows a block of the rows kernel takes: its chunk goes through static
+// shared memory (48 KB), so rows of 16 lanes (matmul 4 x 4) take half.
+template <int D>
+__host__ __device__ constexpr int apply_rows() {
+  return D <= 12 ? 1024 : 512;
+}
+
+// op(seed, v) on one lane of a lane-wise entry, rounded to T.
+template <int OP, class T>
 __device__ __forceinline__ float lane_op(float seed, float v) {
   Row<1> a, b;
   a.v[0] = seed;
   b.v[0] = v;
-  return Op<OP, 1>::template apply<1>(a, b).v[0];
+  return Combine<OP, 1, false, T>::apply(a, b).v[0];
 }
 
-// Float f (a global index) of a tile whose seed row is s, folded.
-template <int OP, int D>
+// Element f (a global index) of a tile whose seed row is s, folded.
+template <int OP, int D, class T>
 __device__ __forceinline__ float fold(const float (&s)[D], long long f,
                                       float v) {
-  return lane_op<OP>(s[(int)(f % D)], v);
+  return lane_op<OP, T>(s[(int)(f % D)], v);
 }
 
-template <int OP, int D>
+template <int OP, int D, class T>
 __global__ void __launch_bounds__(kThreads)
-tile_apply_lanes_kernel(const float* __restrict__ local,  // (t*k*D), 16 B
-                        const float* __restrict__ seeds,  // (t, D)
-                        float* __restrict__ out,          // (t*k*D), 16 B
-                        long long tile_floats, int chunks) {
+tile_apply_lanes_kernel(const T* __restrict__ local,  // (t*k*D), 16 B
+                        const T* __restrict__ seeds,  // (t, D)
+                        T* __restrict__ out,          // (t*k*D), 16 B
+                        long long tile_elems, int chunks) {
+  constexpr int V = 16 / (int)sizeof(T);   // elements a 16-byte word
   const int tile = blockIdx.x / chunks;
   const int c = blockIdx.x - tile * chunks;
   const bool apply = tile > 0;
   float s[D];
 #pragma unroll
-  for (int j = 0; j < D; ++j) s[j] = apply ? __ldg(seeds + tile * D + j) : 0.f;
-  const long long f0 = (long long)tile * tile_floats;
-  const long long f1 = f0 + tile_floats;
-  // The tile's whole words [qa, qb); the floats outside them one by one.
-  const long long qa = (f0 + 3) >> 2;
-  const long long qb = f1 >> 2;
-  const long long head_end = qb > qa ? 4 * qa : f1;
-  const long long tail_start = qb > qa ? 4 * qb : f1;
+  for (int j = 0; j < D; ++j) {
+    s[j] = apply ? to_f32<T>(seeds[tile * D + j]) : 0.f;
+  }
+  const long long f0 = (long long)tile * tile_elems;
+  const long long f1 = f0 + tile_elems;
+  // The tile's whole words [qa, qb); the elements outside them one by one.
+  const long long qa = (f0 + V - 1) / V;
+  const long long qb = f1 / V;
+  const long long head_end = qb > qa ? V * qa : f1;
+  const long long tail_start = qb > qa ? V * qb : f1;
 
-  const float4* src = reinterpret_cast<const float4*>(local);
-  float4* dst = reinterpret_cast<float4*>(out);
+  const uint4* src = reinterpret_cast<const uint4*>(local);
+  uint4* dst = reinterpret_cast<uint4*>(out);
   const long long q0 = qa + (long long)c * kApplyQuads + threadIdx.x;
-  float4 v[kApplyLoads];
+  uint4 v[kApplyLoads];
 #pragma unroll
   for (int u = 0; u < kApplyLoads; ++u) {
     const long long q = q0 + u * kThreads;
@@ -96,44 +107,52 @@ tile_apply_lanes_kernel(const float* __restrict__ local,  // (t*k*D), 16 B
     const long long q = q0 + u * kThreads;
     if (q >= qb) continue;
     if (apply) {
-      v[u].x = fold<OP, D>(s, 4 * q, v[u].x);
-      v[u].y = fold<OP, D>(s, 4 * q + 1, v[u].y);
-      v[u].z = fold<OP, D>(s, 4 * q + 2, v[u].z);
-      v[u].w = fold<OP, D>(s, 4 * q + 3, v[u].w);
+      T e[V];
+      memcpy(e, &v[u], 16);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        e[j] = from_f32<T>(fold<OP, D, T>(s, V * q + j, to_f32<T>(e[j])));
+      }
+      memcpy(&v[u], e, 16);
     }
     dst[q] = v[u];
   }
-  // Head (< 8 floats when the tile holds no whole word) and tail (< 4).
-  if (c == 0 && threadIdx.x < 8) {
+  // Head (< 2V elements when the tile holds no whole word) and tail (< V).
+  if (c == 0 && threadIdx.x < 2 * V) {
     const long long f = f0 + threadIdx.x;
     if (f < head_end) {
-      out[f] = apply ? fold<OP, D>(s, f, local[f]) : local[f];
+      out[f] = apply ? from_f32<T>(fold<OP, D, T>(s, f, to_f32<T>(local[f])))
+                     : local[f];
     }
   }
-  if (c == chunks - 1 && threadIdx.x < 4) {
+  if (c == chunks - 1 && threadIdx.x < V) {
     const long long f = tail_start + threadIdx.x;
-    if (f < f1) out[f] = apply ? fold<OP, D>(s, f, local[f]) : local[f];
+    if (f < f1) {
+      out[f] = apply ? from_f32<T>(fold<OP, D, T>(s, f, to_f32<T>(local[f])))
+                     : local[f];
+    }
   }
 }
 
-template <int OP, int D>
+template <int OP, int D, class T>
 __global__ void __launch_bounds__(kThreads)
-tile_apply_rows_kernel(const float* __restrict__ local,  // (t*k, D)
-                       const float* __restrict__ seeds,  // (t, D)
-                       float* __restrict__ out,          // (t*k, D)
+tile_apply_rows_kernel(const T* __restrict__ local,  // (t*k, D)
+                       const T* __restrict__ seeds,  // (t, D)
+                       T* __restrict__ out,          // (t*k, D)
                        int k, int chunks) {
-  using C = Combine<OP, D, false>;
-  // kApplyRows rows of D floats, one pad float every 32 (padi).
-  __shared__ float buf[kApplyRows * D + (kApplyRows * D >> 5) + 1];
+  using C = Combine<OP, D, false, T>;
+  constexpr int R = apply_rows<D>();
+  // R rows of D floats, one pad float every 32 (padi).
+  __shared__ float buf[R * D + (R * D >> 5) + 1];
   const int tile = blockIdx.x / chunks;
   const int c = blockIdx.x - tile * chunks;
-  const int r0 = c * kApplyRows;
-  const int m = min(kApplyRows, k - r0);
+  const int r0 = c * R;
+  const int m = min(R, k - r0);
   const size_t f0 = ((size_t)tile * k + r0) * D;
   load_floats(buf, local + f0, m * D);
   __syncthreads();
   if (tile > 0) {
-    const Row<D> s = load_row<D>(seeds + (size_t)tile * D);
+    const Row<D> s = load_row<D, T>(seeds + (size_t)tile * D);
     for (int r = threadIdx.x; r < m; r += kThreads) {
       smem_store_row<D>(buf, r, C::apply(s, smem_row<D>(buf, r)));
     }
@@ -142,43 +161,48 @@ tile_apply_rows_kernel(const float* __restrict__ local,  // (t*k, D)
   store_floats(out + f0, buf, m * D);
 }
 
-template <int OP, int D>
+template <int OP, int D, class T>
 int launch_local(const void* x, void* local, void* partials, void* status,
                  void* aggs, void* prefs, void* counter, int t, int k,
                  int chunk_rows, int chunks_per_tile, cudaStream_t st) {
-  return launch_chained<OP, D, false>(
-      t * chunks_per_tile, st, static_cast<const float*>(x), nullptr,
-      static_cast<float*>(local), static_cast<int*>(status),
-      static_cast<float*>(aggs), static_cast<float*>(prefs),
-      static_cast<float*>(partials), static_cast<unsigned*>(counter), nullptr,
-      k, chunk_rows, chunks_per_tile);
+  return launch_chained<OP, D, false, T>(
+      t * chunks_per_tile, st, static_cast<const T*>(x),
+      static_cast<const T*>(nullptr), static_cast<T*>(local),
+      static_cast<int*>(status), static_cast<float*>(aggs),
+      static_cast<float*>(prefs), static_cast<T*>(partials),
+      static_cast<unsigned*>(counter), nullptr, k, chunk_rows,
+      chunks_per_tile);
 }
 
-template <int OP, int D>
+template <int OP, int D, class T>
 int launch_apply(const void* local, const void* seeds, void* out, int t, int k,
                  cudaStream_t st) {
-  const float* l = static_cast<const float*>(local);
-  const float* s = static_cast<const float*>(seeds);
-  float* o = static_cast<float*>(out);
-  if constexpr (OP == kOpRigid) {
-    const int chunks = (k + kApplyRows - 1) / kApplyRows;
+  const T* l = static_cast<const T*>(local);
+  const T* s = static_cast<const T*>(seeds);
+  T* o = static_cast<T*>(out);
+  if constexpr (OP == kOpRigid || OP == kOpMatmul) {
+    constexpr int R = apply_rows<D>();
+    const int chunks = (k + R - 1) / R;
     if ((long long)t * chunks > 0x7fffffffll) return (int)cudaErrorInvalidValue;
-    tile_apply_rows_kernel<OP, D><<<t * chunks, kThreads, 0, st>>>(
+    tile_apply_rows_kernel<OP, D, T><<<t * chunks, kThreads, 0, st>>>(
         l, s, o, k, chunks);
   } else {
-    const long long tile_floats = (long long)k * D;
-    const long long words = (tile_floats + 3) / 4;
+    constexpr int V = 16 / (int)sizeof(T);
+    const long long tile_elems = (long long)k * D;
+    const long long words = (tile_elems + V - 1) / V;
     const int chunks = (int)((words + kApplyQuads - 1) / kApplyQuads);
     if ((long long)t * chunks > 0x7fffffffll) return (int)cudaErrorInvalidValue;
-    tile_apply_lanes_kernel<OP, D><<<t * chunks, kThreads, 0, st>>>(
-        l, s, o, tile_floats, chunks);
+    tile_apply_lanes_kernel<OP, D, T><<<t * chunks, kThreads, 0, st>>>(
+        l, s, o, tile_elems, chunks);
   }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// op, d: an entry of scan_ops.cuh's table.  Return a cudaError_t, or
+// op, d: an entry of scan_ops.cuh's table; x, local, partials, seeds and
+// out are bfloat16 where op carries kStorageBf16, else float32 (aggs and
+// prefs float32 always).  Return a cudaError_t, or
 // cudaErrorInvalidValue for an (op, d) outside the table.
 //
 // tile_local_scan: each of the t tiles of k rows is cut into
@@ -199,9 +223,9 @@ extern "C" int tile_local_scan_launch(int op, int d, const void* x,
   }
   return dispatch_entry(op, d, [&](auto e) {
     using E = decltype(e);
-    return launch_local<E::op, E::d>(x, local, partials, status, aggs, prefs,
-                                     counter, t, k, chunk_rows,
-                                     chunks_per_tile, st);
+    return launch_local<E::op, E::d, typename E::T>(
+        x, local, partials, status, aggs, prefs, counter, t, k, chunk_rows,
+        chunks_per_tile, st);
   });
 }
 
@@ -216,7 +240,8 @@ extern "C" int tile_apply_launch(int op, int d, const void* local,
   }
   return dispatch_entry(op, d, [&](auto e) {
     using E = decltype(e);
-    return launch_apply<E::op, E::d>(local, seeds, out, t, k, st);
+    return launch_apply<E::op, E::d, typename E::T>(local, seeds, out, t, k,
+                                                    st);
   });
 }
 

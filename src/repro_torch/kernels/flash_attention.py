@@ -32,6 +32,8 @@ NAME = "flash_attention"
 SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 REPLACES = "src/repro/kernels/flash_attention.py:76"
 LAUNCHES = _cuda.launch_counter(NAME)
+#: The non-causal ones among LAUNCHES (an encoder's), counted beside it.
+LAUNCHES_NONCAUSAL = _cuda.launch_counter(NAME + "_noncausal")
 
 NEG_INF = -1e30
 MAX_D = 128
@@ -123,6 +125,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
         raise RuntimeError(f"flash_attention kernel launch failed: {msg} "
                            f"({err})")
     LAUNCHES.add()
+    if not causal:
+        LAUNCHES_NONCAUSAL.add()
     return out
 
 

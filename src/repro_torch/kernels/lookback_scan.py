@@ -40,7 +40,7 @@ from repro_torch.analysis.invariants import (
 from repro_torch.analysis.sync import invariants_enabled, sync_point
 
 from . import _cuda
-from .op_table import KERNEL_OPS, check_kernel_row
+from .op_table import check_kernel_row, op_code
 
 Op = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -188,27 +188,26 @@ def lookback_scan_cuda(
     seed: Optional[torch.Tensor] = None,
     walk_steps: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel.  Raises on anything it does not take: an op
-    outside the kernel table (``op_table.py``), a width it does not hold,
-    another device or dtype.  ``walk_steps``: an optional (t,) int32 tensor
+    """Launch the CUDA kernel on float32 or bfloat16 rows (``y`` in x's
+    dtype; the board's aggregates and prefixes are float32).  Raises on
+    anything it does not take: an op outside the kernel table
+    (``op_table.py``), a width it does not hold, another device or dtype.  ``walk_steps``: an optional (t,) int32 tensor
     on the same device that receives each tile's lookback walk length
     (tiles > 0; how many predecessors the walk read), for tests and
     measurements of the protocol."""
     t, k, d = _check_args(x, num_tiles)
     masked = bool(getattr(op, "kernel_masked", False))
-    name = check_kernel_row(op, d, masked)
+    name = check_kernel_row(op, d, masked, x.dtype)
     if x.device.type != "cuda":
         raise ValueError(f"lookback_scan kernel: x is on {x.device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"lookback_scan kernel: x is {x.dtype}, not f32")
     dev = x.device
     with torch.cuda.device(dev):
         xc = x.contiguous()
         seed_row = None
         if seed is not None:
-            seed_row = seed.to(device=dev, dtype=torch.float32).reshape(d)
+            seed_row = seed.to(device=dev, dtype=x.dtype).reshape(d)
             seed_row = seed_row.contiguous()
-        y = torch.empty((t * k, d), dtype=torch.float32, device=dev)
+        y = torch.empty((t * k, d), dtype=x.dtype, device=dev)
         # Column 0 is each tile's flag; for one-float rows the kernel
         # publishes the value beside it in column 1 (one 8-byte word).
         board = torch.zeros((t, 2), dtype=torch.int32, device=dev)
@@ -224,7 +223,7 @@ def lookback_scan_cuda(
                              "tensor on x's device")
         fn, error_string = _launcher()
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(KERNEL_OPS[name], d - int(masked), int(masked),
+        err = fn(op_code(name, x.dtype), d - int(masked), int(masked),
                  xc.data_ptr(),
                  seed_row.data_ptr() if seed_row is not None else None,
                  y.data_ptr(), board.data_ptr(), aggs.data_ptr(),

@@ -35,7 +35,7 @@ import torch
 from . import _cuda
 from ._tiling import CUDA_TILE_ROWS, PlanOperands, plan_stride
 from .lookback_scan import doubling_scan
-from .op_table import KERNEL_OPS, check_kernel_row
+from .op_table import check_kernel_row, op_code
 
 Op = Callable[[Any, Any], Any]
 
@@ -82,7 +82,7 @@ def fused_round_cuda(op: Op, y: torch.Tensor, src: torch.Tensor) -> torch.Tensor
     """Launch the ``fused_round`` kernel into a new buffer (all reads of the
     round happen before any write); raises on anything it does not take."""
     n, d = _round_args(y, src)
-    name = check_kernel_row(op, d)
+    name = check_kernel_row(op, d, dtype=y.dtype)
     _check_tensor("fused_round kernel", y)
     if src.device != y.device or src.dtype != torch.int32:
         raise ValueError("fused_round kernel: src must be int32 on y's device")
@@ -93,7 +93,7 @@ def fused_round_cuda(op: Op, y: torch.Tensor, src: torch.Tensor) -> torch.Tensor
             sc = sc.clone()
         out = torch.empty_like(yc)
         fn, _plan, error_string = _fused_entries()
-        err = fn(KERNEL_OPS[name], d, yc.data_ptr(), sc.data_ptr(),
+        err = fn(op_code(name, y.dtype), d, yc.data_ptr(), sc.data_ptr(),
                  out.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, FUSED_NAME, error_string)
     FUSED_LAUNCHES.add()
@@ -170,7 +170,7 @@ def fused_plan_cuda(
     when the card refuses the cluster (its shared memory, its size, or no
     room for it): nothing runs in its place."""
     n, d = _plan_args(y, plan_ops)
-    name = check_kernel_row(op, d)
+    name = check_kernel_row(op, d, dtype=y.dtype)
     _check_tensor("fused_plan kernel", y)
     if plan_ops.ops.device != y.device:
         raise ValueError("fused_plan kernel: the operand list must be on "
@@ -180,10 +180,11 @@ def fused_plan_cuda(
     with torch.cuda.device(dev):
         yc = y.contiguous()
         out = torch.empty_like(yc)
-        total = (torch.empty((d,), dtype=torch.float32, device=dev)
+        total = (torch.empty((d,), dtype=y.dtype, device=dev)
                  if plan_ops.capture_round >= 0 else None)
         _round, fn, error_string = _fused_entries()
-        err = fn(KERNEL_OPS[name], d, yc.data_ptr(), plan_ops.ops.data_ptr(),
+        err = fn(op_code(name, y.dtype), d, yc.data_ptr(),
+                 plan_ops.ops.data_ptr(),
                  plan_ops.offsets.data_ptr(), plan_ops.flags.data_ptr(),
                  out.data_ptr(),
                  None if total is None else total.data_ptr(), n,
@@ -263,8 +264,6 @@ def _entries():
 def _check_tensor(what: str, t: torch.Tensor) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{what}: tensor on {t.device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{what}: tensor is {t.dtype}, not f32")
 
 
 def _raise_on(err: int, what: str, error_string) -> None:
@@ -281,21 +280,21 @@ def tile_local_scan_cuda(
     cut into chunks of at most ``CUDA_TILE_ROWS`` rows, one block a chunk,
     chained within the tile; the chunk board is scratch allocated here."""
     t, k, d = _split(x, num_tiles)
-    name = check_kernel_row(op, d)
+    name = check_kernel_row(op, d, dtype=x.dtype)
     _check_tensor("tile_local_scan kernel", x)
     chunk_rows = min(k, CUDA_TILE_ROWS)
     chunks = -(-k // chunk_rows)
     dev = x.device
     with torch.cuda.device(dev):
         xc = x.contiguous()
-        local = torch.empty((t, k, d), dtype=torch.float32, device=dev)
-        partials = torch.empty((t, d), dtype=torch.float32, device=dev)
+        local = torch.empty((t, k, d), dtype=x.dtype, device=dev)
+        partials = torch.empty((t, d), dtype=x.dtype, device=dev)
         status = torch.zeros((t * chunks, 2), dtype=torch.int32, device=dev)
         aggs = torch.empty((t * chunks, d), dtype=torch.float32, device=dev)
         prefs = torch.empty((t * chunks, d), dtype=torch.float32, device=dev)
         counter = torch.zeros((1,), dtype=torch.int32, device=dev)
         loc, _app, error_string = _entries()
-        err = loc(KERNEL_OPS[name], d, xc.data_ptr(), local.data_ptr(),
+        err = loc(op_code(name, x.dtype), d, xc.data_ptr(), local.data_ptr(),
                   partials.data_ptr(), status.data_ptr(), aggs.data_ptr(),
                   prefs.data_ptr(), counter.data_ptr(), t, k, chunk_rows,
                   chunks, torch.cuda.current_stream(dev).cuda_stream)
@@ -315,19 +314,20 @@ def tile_apply_cuda(
             f"{tuple(local.shape)} and {tuple(seeds.shape)}"
         )
     t, k, d = local.shape
-    name = check_kernel_row(op, d)
+    name = check_kernel_row(op, d, dtype=local.dtype)
     _check_tensor("tile_apply kernel", local)
     _check_tensor("tile_apply kernel", seeds)
-    if seeds.device != local.device:
-        raise ValueError("tile_apply kernel: local and seeds on different devices")
+    if seeds.device != local.device or seeds.dtype != local.dtype:
+        raise ValueError("tile_apply kernel: local and seeds on different "
+                         "devices or of different dtypes")
     dev = local.device
     with torch.cuda.device(dev):
         lc, sc = local.contiguous(), seeds.contiguous()
         if lc.data_ptr() % 16:   # the kernel streams 16-byte words
             lc = lc.clone()
-        out = torch.empty((t * k, d), dtype=torch.float32, device=dev)
+        out = torch.empty((t * k, d), dtype=local.dtype, device=dev)
         _loc, app, error_string = _entries()
-        err = app(KERNEL_OPS[name], d, lc.data_ptr(), sc.data_ptr(),
+        err = app(op_code(name, local.dtype), d, lc.data_ptr(), sc.data_ptr(),
                   out.data_ptr(), t, k,
                   torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, APPLY_NAME, error_string)

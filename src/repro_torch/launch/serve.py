@@ -78,16 +78,30 @@ class Server:
         self._prefill = steps.make_prefill_step(self.acfg)
         self._decode = steps.make_decode_step(self.acfg)
 
+    def _extras(self, b: int):
+        """The frontend stubs' inputs for a batch of ``b``: zero patch or
+        frame embeddings at (b, frontend_len, d_model) in the compute dtype,
+        as the reference's server feeds them."""
+        cfg = self.acfg
+        key = {"patch": "patches", "audio": "frames"}.get(cfg.frontend)
+        if key is None:
+            return {}
+        return {key: torch.zeros((b, cfg.frontend_len, cfg.d_model),
+                                 dtype=cfg.cdtype, device=self.device)}
+
     def _init_states(self, b: int):
         """Fresh decode states for a batch of ``b``; returns (prefix, states).
 
-        ``prefix`` is the number of frontend positions before the prompt
-        tokens (0: the patch frontend is not ported).  Split out of
+        ``prefix`` is the number of frontend positions prepended before the
+        prompt tokens (patch frontends decode after their patch block), and
+        the caches hold ``prefix + max_len`` positions.  Split out of
         :meth:`serve_batch` so tests can stub the model steps without
         touching state allocation.
         """
-        return 0, lm.init_decode_states(self.acfg, b, self.cfg_s.max_len,
-                                        device=self.device)
+        cfg = self.acfg
+        prefix = cfg.frontend_len if cfg.frontend == "patch" else 0
+        return prefix, lm.init_decode_states(
+            cfg, b, prefix + self.cfg_s.max_len, device=self.device)
 
     def serve_batch(self, requests: List[Request]) -> Dict[str, Any]:
         """Prefill + decode one batch of requests; returns timing stats.
@@ -109,7 +123,8 @@ class Server:
             prompts[i, -len(r.prompt):] = r.prompt  # left-pad
         prefix, states = self._init_states(b)
         batch = {"tokens": torch.as_tensor(prompts, dtype=torch.long,
-                                           device=self.device)}
+                                           device=self.device),
+                 **self._extras(b)}
         _sync(self.device)
         t0 = time.time()
         logits, states = self._prefill(self.params, batch, states)

@@ -1,9 +1,9 @@
-"""GQA attention block (qk_norm / qkv_bias / rope / KV-cache)
+"""GQA attention block (qk_norm / qkv_bias / rope / KV-cache / cross-attn)
 (port of ``repro/models/attention.py``).
 
-``cross_attention`` (whisper's encoder-decoder path) comes with the encoder
-configurations (``ROADMAP.md`` Queue 1, the LM configurations and block
-kinds) and raises until then.
+``cross_attention`` is whisper's encoder-decoder path: it always takes the
+plain "xla" attention, as the reference hard-codes it, whatever the
+config's ``attn_backend``.
 """
 
 from __future__ import annotations
@@ -115,8 +115,15 @@ def attention_decode(p, cfg: ArchConfig, x, pos, cache):
 
 
 def cross_attention(p, cfg: ArchConfig, x, enc_out):
-    raise NotImplementedError(
-        "cross_attention (encoder-decoder configurations such as whisper) "
-        "is not ported yet (the LM configurations and block kinds, "
-        "ROADMAP.md Queue 1)"
-    )
+    """Encoder-decoder cross attention (whisper): queries from ``x``, keys
+    and values from ``enc_out``, no RoPE and no qk-norm; non-causal, on
+    the plain path, as the reference hard-codes it."""
+    bsz, l, _ = x.shape
+    le = enc_out.shape[1]
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = dense(p["wq"], x).reshape(bsz, l, hq, hd).transpose(1, 2)
+    k = dense(p["wk"], enc_out).reshape(bsz, le, hkv, hd).transpose(1, 2)
+    v = dense(p["wv"], enc_out).reshape(bsz, le, hkv, hd).transpose(1, 2)
+    o = kops.attention(q, k, v, causal=False, backend="xla")
+    o = o.transpose(1, 2).reshape(bsz, l, hq * hd)
+    return dense(p["wo"], o.to(x.dtype))

@@ -1,10 +1,11 @@
 """Block assembly: pre-norm residual blocks of each kind + state plumbing
 (port of ``repro/models/blocks.py``).
 
-Ported kinds: ``attn``, ``shared_attn``, ``mamba2``, ``mlstm`` and
-``slstm``.  ``moe`` (and ``moe.py``) and cross-attention (``xattn``) come
-in later slices (``ROADMAP.md`` Queue 1, the LM configurations and block
-kinds) and raise until then.
+Every kind of the reference: ``attn``, ``shared_attn``, ``moe`` (attention
+plus the MoE layer, plus a dense MLP beside it where
+``moe_dense_residual`` is set), ``mamba2``, ``mlstm`` and ``slstm``; and
+the cross-attention an ``attn`` block gets with ``cross=True`` (``lnx``
+and ``xattn``, read when an encoder output is passed).
 """
 
 from __future__ import annotations
@@ -18,10 +19,12 @@ from .attention import (
     attention_decode,
     attention_prefill,
     attn_init,
+    cross_attention,
     init_kv_cache,
 )
 from .config import ArchConfig
 from .layers import rmsnorm, rmsnorm_init, swiglu, swiglu_init
+from .moe import moe_apply, moe_init
 from .ssm import (
     mamba2_apply,
     mamba2_decode,
@@ -39,41 +42,41 @@ from .ssm import (
     slstm_state_init,
 )
 
-_UNPORTED_KINDS = ("moe",)
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (the LM configurations and block "
-        "kinds, ROADMAP.md Queue 1)"
-    )
-
-
 def block_init(gen, cfg: ArchConfig, kind: str, *, cross: bool = False):
     d = cfg.d_model
-    if cross:
-        raise _not_ported("cross-attention (xattn) blocks")
     if kind in ("attn", "shared_attn"):
-        return {
+        p = {
             "ln1": rmsnorm_init(d, cfg.pdtype, gen.device),
             "attn": attn_init(gen, cfg),
             "ln2": rmsnorm_init(d, cfg.pdtype, gen.device),
             "mlp": swiglu_init(gen, d, cfg.d_ff, cfg.pdtype),
         }
+        if cross:
+            p["lnx"] = rmsnorm_init(d, cfg.pdtype, gen.device)
+            p["xattn"] = attn_init(gen, cfg)
+        return p
+    if kind == "moe":
+        p = {
+            "ln1": rmsnorm_init(d, cfg.pdtype, gen.device),
+            "attn": attn_init(gen, cfg),
+            "ln2": rmsnorm_init(d, cfg.pdtype, gen.device),
+            "moe": moe_init(gen, cfg),
+        }
+        if cfg.moe_dense_residual:
+            p["dense_mlp"] = swiglu_init(gen, d, cfg.d_ff, cfg.pdtype)
+        return p
     mixer_init = {"mamba2": mamba2_init, "mlstm": mlstm_init,
                   "slstm": slstm_init}.get(kind)
     if mixer_init is not None:
         return {"ln1": rmsnorm_init(d, cfg.pdtype, gen.device),
                 "mixer": mixer_init(gen, cfg)}
-    if kind in _UNPORTED_KINDS:
-        raise _not_ported(f"the {kind!r} block")
     raise ValueError(f"unknown block kind {kind!r}")
 
 
 def block_state_init(cfg: ArchConfig, kind: str, batch: int, max_len: int,
                      device=None):
     """Decode-time state for one block instance."""
-    if kind in ("attn", "shared_attn"):
+    if kind in ("attn", "shared_attn", "moe"):
         return init_kv_cache(cfg, batch, max_len, device=device)
     if kind == "mamba2":
         return mamba2_state_init(cfg, batch, device=device)
@@ -81,8 +84,6 @@ def block_state_init(cfg: ArchConfig, kind: str, batch: int, max_len: int,
         return mlstm_state_init(cfg, batch, device=device)
     if kind == "slstm":
         return slstm_state_init(cfg, batch, device=device)
-    if kind in _UNPORTED_KINDS:
-        raise _not_ported(f"the {kind!r} block")
     raise ValueError(kind)
 
 
@@ -133,10 +134,12 @@ def block_residual(
     feeds a norm in float32 from its two bf16 terms, unrounded (the norm's
     upcast absorbs the add), while the stream carries the rounded sum.
     ``norm_in`` is that float32 sum for this block's first norm (the caller
-    has it from the previous block of the superblock); the attention block's
-    second norm gets its own the same way.  In float32 both equal x."""
+    has it from the previous block of the superblock); the attention
+    block's later norms (``lnx`` after the self-attention, ``ln2``) get
+    theirs the same way.  In float32 all equal x.  A ``moe`` block's aux
+    loss comes back as ``aux_loss``."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if kind in ("attn", "shared_attn"):
+    if kind in ("attn", "shared_attn", "moe"):
         h = _norm(p["ln1"], cfg, x, norm_in)
         if mode == "train":
             a = attention_block(p["attn"], cfg, h, positions)
@@ -147,10 +150,20 @@ def block_residual(
             a, new_state = attention_decode(p["attn"], cfg, h, pos, state)
         else:
             raise ValueError(mode)
+        x_sum = x.float() + a.float()
+        x = x + a
         if "xattn" in p and enc_out is not None:
-            raise _not_ported("cross-attention (xattn) blocks")
-        h = _norm(p["ln2"], cfg, x, x.float() + a.float())
-        return x + a, swiglu(p["mlp"], h), new_state, aux
+            h = _norm(p["lnx"], cfg, x, x_sum)
+            c = cross_attention(p["xattn"], cfg, h, enc_out)
+            x_sum = x.float() + c.float()
+            x = x + c
+        h = _norm(p["ln2"], cfg, x, x_sum)
+        if kind == "moe":
+            y, aux = moe_apply(p["moe"], cfg, h)
+            if cfg.moe_dense_residual:
+                y = y + swiglu(p["dense_mlp"], h)
+            return x, y, new_state, aux
+        return x, swiglu(p["mlp"], h), new_state, aux
     if kind == "mamba2":
         h = _norm(p["ln1"], cfg, x, norm_in)
         if mode == "train":
@@ -179,6 +192,4 @@ def block_residual(
         else:
             y, new_state = slstm_decode(p["mixer"], cfg, h, state)
         return x, y, new_state, aux
-    if kind in _UNPORTED_KINDS:
-        raise _not_ported(f"the {kind!r} block")
     raise ValueError(kind)

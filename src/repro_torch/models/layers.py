@@ -111,6 +111,19 @@ def rmsnorm(p, x, eps: float = 1e-6):
     return (y * p["scale"].float()).to(x.dtype)
 
 
+def layernorm_init(d: int, dtype, device=None):
+    return {"scale": const_param((d,), 1.0, dtype, device),
+            "bias": const_param((d,), 0.0, dtype, device)}
+
+
+def layernorm(p, x, eps: float = 1e-5):
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = ((x32 - mu) ** 2).mean(-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
+
+
 def embed_init(gen, vocab: int, d: int, dtype):
     return {"table": normal_param(gen, (vocab, d), dtype, 0.02)}
 

@@ -10,11 +10,16 @@ the weights plus a float32 draw of at most 64 MB (``layers.params_into``).
 ``shared_attn`` blocks (zamba2) keep one unstacked parameter set used by
 every superblock.
 
-Not ported yet: ``loss_fn`` (LM training, ``ROADMAP.md`` Queue 1),
-``_encode`` and the patch/audio frontends (the LM configurations and block
-kinds, Queue 1); they raise.
-The reference's ``shardctx`` constraints are no-ops without a mesh and are
-dropped.
+Multimodal frontends are stubs, as in the reference: ``batch["patches"]``
+(InternVL2's patch prefix, prepended to the token embeddings) and
+``batch["frames"]`` (Whisper's encoder input) carry precomputed embeddings
+at d_model width.  An encoder-decoder config stacks its encoder's ``attn``
+blocks under ``params["encoder"]``, and every decoder block cross-attends
+the encoder output, which the decode states carry (``enc_out``).
+
+Not ported yet: ``loss_fn`` (LM training, ``ROADMAP.md`` Queue 1); it
+raises.  The reference's ``shardctx`` constraints are no-ops without a
+mesh and are dropped.
 """
 
 from __future__ import annotations
@@ -25,7 +30,8 @@ import torch
 
 from repro_torch.core._tree import tree_index, tree_map, tree_stack
 
-from .blocks import block_init, block_residual, block_state_init
+from .attention import attention_block
+from .blocks import _norm, block_init, block_residual, block_state_init
 from .config import ArchConfig
 from .layers import (
     embed,
@@ -36,31 +42,28 @@ from .layers import (
     params_into,
     rmsnorm,
     rmsnorm_init,
+    swiglu,
 )
 
 
-def _stacked_init(gen: torch.Generator, cfg: ArchConfig, kind: str):
-    """One block kind's parameters stacked over the superblocks: the
-    block's shapes from a walk on the meta device, each stacked leaf made
-    once, then every superblock drawn into its slice."""
+def _stacked_init(gen: torch.Generator, cfg: ArchConfig, kind: str,
+                  count: int, cross: bool = False):
+    """One block kind's parameters stacked ``count`` times (the
+    superblocks, or the encoder's layers): the block's shapes from a walk
+    on the meta device, each stacked leaf made once, then every instance
+    drawn into its slice."""
     with params_into() as protos:
-        tree = block_init(gen, cfg, kind)
-    stacks = [param((cfg.n_super, *t.shape), t.dtype, gen.device)
-              for t in protos]
-    for i in range(cfg.n_super):
+        tree = block_init(gen, cfg, kind, cross=cross)
+    stacks = [param((count, *t.shape), t.dtype, gen.device) for t in protos]
+    for i in range(count):
         with params_into([s[i] for s in stacks]):
-            block_init(gen, cfg, kind)
+            block_init(gen, cfg, kind, cross=cross)
     where = {id(t): s for t, s in zip(protos, stacks)}
     return tree_map(lambda t: where[id(t)], tree)
 
 
 def init_params(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, Any]:
     """Parameters drawn from ``gen``, on its device."""
-    if cfg.encoder_layers:
-        raise NotImplementedError(
-            "encoder-decoder configurations are not ported yet "
-            "(the LM configurations and block kinds, ROADMAP.md Queue 1)"
-        )
     params: Dict[str, Any] = {
         "embed": embed_init(gen, cfg.padded_vocab, cfg.d_model, cfg.pdtype),
         "final_norm": rmsnorm_init(cfg.d_model, cfg.pdtype, gen.device),
@@ -68,14 +71,21 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, Any]:
             gen, cfg.d_model, cfg.padded_vocab, cfg.head_chunks, cfg.pdtype
         ),
     }
+    cross = cfg.encoder_layers > 0
     blocks = {}
     for j, kind in enumerate(cfg.block_pattern):
         if kind == "shared_attn":
             continue
-        blocks[f"b{j}"] = _stacked_init(gen, cfg, kind)
+        blocks[f"b{j}"] = _stacked_init(gen, cfg, kind, cfg.n_super,
+                                        cross=cross)
     params["blocks"] = blocks
     if "shared_attn" in cfg.block_pattern:
         params["shared"] = block_init(gen, cfg, "shared_attn")
+    if cfg.encoder_layers:
+        params["encoder"] = {
+            "blocks": _stacked_init(gen, cfg, "attn", cfg.encoder_layers),
+            "norm": rmsnorm_init(cfg.d_model, cfg.pdtype, gen.device),
+        }
     return params
 
 
@@ -93,21 +103,41 @@ def init_shapes(cfg: ArchConfig) -> Dict[str, Any]:
 
 
 def _encode(params, cfg: ArchConfig, frames):
-    raise NotImplementedError(
-        "the encoder (whisper's audio frontend) is not ported yet "
-        "(the LM configurations and block kinds, ROADMAP.md Queue 1)"
-    )
+    """Whisper-style encoder over precomputed frame embeddings (stub
+    frontend): its ``attn`` blocks with bidirectional attention
+    (causal=False, through ``cfg.attn_backend``), RoPE on the frame
+    positions as the reference's ``_project_qkv`` applies it, then the
+    encoder norm.  The second norm of a layer reads the float32 residual
+    sum, as ``block_residual``'s do."""
+    x = frames.to(cfg.cdtype)
+    positions = torch.arange(x.shape[1], device=x.device)
+    enc = params["encoder"]
+    for i in range(cfg.encoder_layers):
+        p = tree_index(enc["blocks"], i)
+        h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+        a = attention_block(p["attn"], cfg, h, positions, causal=False)
+        h = _norm(p["ln2"], cfg, x, x.float() + a.float())
+        x = x + a
+        x = x + swiglu(p["mlp"], h)
+    return rmsnorm(enc["norm"], x, cfg.norm_eps)
 
 
 def _embed_inputs(params, cfg: ArchConfig, batch):
-    """Token embeddings (the multimodal prefixes of a later slice raise)."""
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"the {cfg.frontend!r} frontend is not ported yet "
-            "(the LM configurations and block kinds, ROADMAP.md Queue 1)"
-        )
+    """Token embeddings, with multimodal prefixes prepended (VLM).
+    Returns (x, n_prefix)."""
     x = embed(params["embed"], batch["tokens"]).to(cfg.cdtype)
-    return x, 0
+    n_prefix = 0
+    if cfg.frontend == "patch" and "patches" in batch:
+        x = torch.cat([batch["patches"].to(cfg.cdtype), x], dim=1)
+        n_prefix = batch["patches"].shape[1]
+    return x, n_prefix
+
+
+def _encoder_out(params, cfg: ArchConfig, batch):
+    """The encoder's output for ``batch["frames"]``, or None."""
+    if cfg.encoder_layers and "frames" in batch:
+        return _encode(params, cfg, batch["frames"])
+    return None
 
 
 def _run_blocks(params, cfg: ArchConfig, x, *, positions, mode, states=None,
@@ -156,8 +186,11 @@ def forward_hidden(params, cfg: ArchConfig, batch, *, seq_axes=None):
     x, n_prefix = _embed_inputs(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     x, aux, _ = _run_blocks(params, cfg, x, positions=positions, mode="train",
+                            enc_out=_encoder_out(params, cfg, batch),
                             seq_axes=seq_axes)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if n_prefix:
+        x = x[:, n_prefix:]
     return x, aux
 
 
@@ -181,15 +214,12 @@ def loss_fn(params, cfg: ArchConfig, batch, *, seq_axes=None):
 
 
 def init_decode_states(cfg: ArchConfig, batch: int, max_len: int, device=None):
-    """Per-superblock states.
+    """Per-superblock states + enc-dec extras.
 
     scan_layers=True: stacked (n_super, ...) trees, as the reference's;
-    scan_layers=False: a dict of per-superblock states."""
-    if cfg.encoder_layers:
-        raise NotImplementedError(
-            "encoder-decoder configurations are not ported yet "
-            "(the LM configurations and block kinds, ROADMAP.md Queue 1)"
-        )
+    scan_layers=False: a dict of per-superblock states.  An
+    encoder-decoder config adds ``enc_out``, zeros until a prefill fills
+    it."""
     if cfg.scan_layers:
         blocks = {}
         for j, kind in enumerate(cfg.block_pattern):
@@ -207,28 +237,39 @@ def init_decode_states(cfg: ArchConfig, batch: int, max_len: int, device=None):
             }
             for i in range(cfg.n_super)
         }
-    return {"blocks": blocks}
+    states = {"blocks": blocks}
+    if cfg.encoder_layers:
+        states["enc_out"] = torch.zeros(
+            (batch, cfg.frontend_len, cfg.d_model), dtype=cfg.cdtype,
+            device=device)
+    return states
 
 
 def prefill(params, cfg: ArchConfig, batch, states, *, seq_axes=None):
     """Process the prompt, fill caches; returns (last_logits, states)."""
     x, _ = _embed_inputs(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
+    enc_out = _encoder_out(params, cfg, batch)
     x, aux, new_blocks = _run_blocks(
         params, cfg, x, positions=positions, mode="prefill",
-        states=states["blocks"], seq_axes=seq_axes,
+        states=states["blocks"], enc_out=enc_out, seq_axes=seq_axes,
     )
     x = rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     logits = head_logits(params["head"], x, cfg.logits_softcap)
-    return logits, {"blocks": new_blocks}
+    new_states = {"blocks": new_blocks}
+    if cfg.encoder_layers:
+        new_states["enc_out"] = (enc_out if enc_out is not None
+                                 else states["enc_out"])
+    return logits, new_states
 
 
 def decode_step(params, cfg: ArchConfig, token, pos, states):
     """One token for every sequence: token (B, 1) int, pos int."""
     x = embed(params["embed"], token).to(cfg.cdtype)
+    enc_out = states.get("enc_out") if cfg.encoder_layers else None
     x, aux, new_blocks = _run_blocks(
         params, cfg, x, positions=None, mode="decode", states=states["blocks"],
-        pos=pos,
+        pos=pos, enc_out=enc_out,
     )
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = head_logits(params["head"], x, cfg.logits_softcap)

@@ -14,6 +14,11 @@ import repro_torch
 from repro_torch.core.deformation import compose_batched
 from repro_torch.core.engine import get_plan, scan
 from repro_torch.data.images import lattice_image, make_series
+from repro_torch.data.scan_rows import (
+    matmul_compose,
+    orthogonal_matrices,
+    telescoping_bf16,
+)
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels import lookback_scan as lb
 from repro_torch.kernels import tile_scan as ts
@@ -474,11 +479,199 @@ def test_scan_kernels_refuse_what_they_do_not_carry(cuda):
         lb.lookback_scan(torch.add, torch.zeros((64, 5), device=cuda), 2)
     with pytest.raises(TypeError):
         lb.lookback_scan(torch.add, x.double(), 2)
+    # The entries that take bfloat16 rows are add and max; matmul takes
+    # m x m float32 matrices, and an untagged lambda raises whatever it
+    # computes.
+    with pytest.raises(KernelOpError, match="bfloat16"):
+        lb.lookback_scan(matmul_compose,
+                         torch.zeros((64, 4), device=cuda).bfloat16(), 2)
+    with pytest.raises(KernelOpError, match="m x m"):
+        lb.lookback_scan(matmul_compose, torch.zeros((64, 5), device=cuda), 2)
+    with pytest.raises(KernelOpError, match="rigid_compose"):
+        scan(lambda a, b: torch.matmul(b, a), torch.zeros((8, 2, 2),
+                                                          device=cuda),
+             backend="decoupled")
     # Without a kernel form, the dispatcher keeps the card off the kernels.
     reset_launch_counts()
     y = scan(lambda a, b: a + b, torch.ones(512, device=cuda))
     assert float(y[-1]) == 512.0
     assert launch_counts().get("lookback_scan", 0) == 0
+
+
+# ----------------------------------- bfloat16 rows and the matmul entry
+
+
+@pytest.mark.parametrize("n", [7, 4097, 2**20 + 3])
+@pytest.mark.parametrize("d", [1, 3, 4])
+def test_lookback_kernel_bf16_matches_plain(cuda, n, d):
+    t = default_num_tiles_cuda(n)
+    m = -(-n // t) * t
+    x = telescoping_bf16(m, d, n + d, device=cuda)[0]
+    f = _floats(m, d, cuda, seed=n).bfloat16()
+    seed = telescoping_bf16(1, d, 9, bound=20, device=cuda)[0][0]
+    for op, xs in ((torch.add, x), (torch.maximum, f)):
+        for sd in (None, seed):
+            got = lb.lookback_scan_cuda(op, xs, t, seed=sd)
+            want = lb.lookback_scan_reference(op, xs, t, seed=sd)
+            torch.cuda.synchronize()
+            assert got[0].dtype == torch.bfloat16
+            assert torch.equal(got[0], want[0])
+
+
+def test_fused_plan_bf16_rounds_each_combine(cuda):
+    """The sequential plan over [256, 1, 1, ...] in one fused_plan launch,
+    whose rows stay in float32 shared memory between rounds: 256 + 1
+    rounds back to 256 in bf16 and every later 1 is added to that, as the
+    reference's Pallas kernels round (and the plain version, the op on
+    bf16 tensors); one rounding per written row would climb to 318."""
+    n = 64
+    x = torch.ones((n, 1), dtype=torch.bfloat16, device=cuda)
+    x[0] = 256
+    plan = get_plan("sequential", n)
+    got, _ = ts.fused_plan_cuda(torch.add, x, plan_operands(plan, 1).to(cuda))
+    want, _ = ts.fused_plan_reference(torch.add, x, plan_operands(plan, 1))
+    assert torch.equal(got, want)
+    assert float(got.max()) == 256.0
+
+
+@pytest.mark.parametrize("n,t", [(1000, 7), (2**16, 64)])
+def test_lookback_kernel_masked_bf16_matches_plain(cuda, n, t):
+    n = -(-n // t) * t
+    g = torch.Generator(device="cpu").manual_seed(n)
+    valid = torch.rand(n, generator=g) < 0.7
+    valid[:3] = False
+    # Telescoping over the valid rows: any combine stays below 256.
+    x = torch.zeros((n, 2), dtype=torch.bfloat16, device=cuda)
+    x[valid.to(cuda)] = telescoping_bf16(int(valid.sum()), 2, n,
+                                         device=cuda)[0]
+    flags = (~valid).to(device=cuda, dtype=torch.bfloat16)[:, None]
+    op = lift_masked(torch.add)
+    xf = torch.cat([x, flags], dim=1)
+    got = lb.lookback_scan_cuda(op, xf, t)[0]
+    want = lb.lookback_scan_reference(op, xf, t)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n,t", [(2**20, 16), (4096 * 3 + 9, 3)])
+@pytest.mark.parametrize("d", [1, 3])
+def test_tile_kernels_bf16_match_plain(cuda, n, t, d):
+    x = telescoping_bf16(n, d, n + d, device=cuda)[0]
+    f = _floats(n, d, cuda, seed=d).bfloat16()
+    for op, xs in ((torch.add, x), (torch.maximum, f)):
+        local, parts = ts.tile_local_scan_cuda(op, xs, t)
+        plocal, pparts = ts.tile_local_scan_reference(op, xs, t)
+        seeds = telescoping_bf16(t, d, 3, bound=20, device=cuda)[0]
+        y = ts.tile_apply_cuda(op, plocal, seeds)
+        want = ts.tile_apply_reference(op, plocal, seeds)
+        torch.cuda.synchronize()
+        assert local.dtype == parts.dtype == y.dtype == torch.bfloat16
+        assert torch.equal(local, plocal)
+        assert torch.equal(parts, pparts)
+        assert torch.equal(y, want)
+
+
+@pytest.mark.parametrize("alg", ["ladner_fischer", "dissemination"])
+@pytest.mark.parametrize("n", [1000, 2**16])
+def test_fused_kernels_bf16_match_plain(cuda, alg, n):
+    plan = get_plan(alg, n)
+    for op, x in ((torch.add, telescoping_bf16(n, 1, n, device=cuda)[0]),
+                  (torch.maximum, _floats(n, 2, cuda, seed=n).bfloat16())):
+        want, _ = ts.fused_plan_reference(op, x, plan_operands(plan, 1))
+        y = x
+        for rnd in plan.rounds:
+            src = round_sources(rnd, n)
+            if src is not None:
+                y = ts.fused_round_cuda(op, y, torch.as_tensor(src,
+                                                               device=cuda))
+        got, _ = ts.fused_plan_cuda(
+            op, x, plan_operands(plan, plan_cluster_size(n, x.shape[1]))
+            .to(cuda))
+        torch.cuda.synchronize()
+        assert y.dtype == got.dtype == torch.bfloat16
+        assert torch.equal(y, want)
+        assert torch.equal(got, want)
+
+
+def test_engine_bf16_scans_run_their_kernels(cuda):
+    """engine.scan of bf16 rows on the card: the decoupled backend, the
+    dispatcher's default and the pallas backend in both modes launch their
+    kernels and match the plain versions."""
+    n = 2**16
+    x = telescoping_bf16(n, 1, 1, device=cuda)[0][:, 0]
+    want = lb.lookback_scan_reference(torch.add, x[:, None], 1)[0][:, 0]
+    reset_launch_counts()
+    for kw in ({"backend": "decoupled"}, {},
+               {"backend": "pallas", "algorithm": "ladner_fischer"},
+               {"backend": "pallas", "num_blocks": 16}):
+        y = scan(torch.add, x, **kw)
+        assert y.dtype == torch.bfloat16
+        assert torch.equal(y, want), kw
+    counts = launch_counts()
+    assert counts["lookback_scan"] >= 2
+    assert counts["fused_plan"] == 1
+    assert counts["tile_local_scan"] == counts["tile_apply"] == 1
+    f = _floats(n, 1, cuda, seed=2)[:, 0].bfloat16()
+    assert torch.equal(scan(torch.maximum, f, backend="decoupled"),
+                       torch.cummax(f, 0).values)
+
+
+@pytest.mark.parametrize("m", [2, 3, 4])
+@pytest.mark.parametrize("n", [33, 4096, 2**16 + 5])
+def test_matmul_entry_matches_plain(cuda, m, n):
+    """later @ earlier over orthogonal matrices, through the decoupled
+    backend (the lookback kernel), seeded and with where=, and through the
+    tile kernels and the fused kernels, against the plain versions."""
+    x = orthogonal_matrices(n, m, n + m, device=cuda)
+    op = matmul_compose
+    tol = dict(rtol=1e-4, atol=1e-4)
+    reset_launch_counts()
+    got = scan(op, x, backend="decoupled")
+    assert launch_counts()["lookback_scan"] == 1
+    x2 = x.reshape(n, m * m)
+    want = lb.lookback_scan_reference(op, x2, 1)[0].reshape(n, m, m)
+    torch.testing.assert_close(got, want, **tol)
+    seed = orthogonal_matrices(1, m, 1, device=cuda)[0]
+    got = scan(op, x, backend="decoupled", seed=seed)
+    want = op(seed.reshape(1, m, m).expand(n, m, m), want)
+    torch.testing.assert_close(got, want, **tol)
+    valid = (torch.arange(n) % 5) != 2
+    got = scan(op, x, backend="decoupled", where=valid)
+    xm = torch.where(valid.to(cuda)[:, None, None], x,
+                     torch.eye(m, device=cuda).expand(n, m, m))
+    want = lb.lookback_scan_reference(op, xm.reshape(n, m * m), 1)[0]
+    torch.testing.assert_close(got, want.reshape(n, m, m), **tol)
+    t = 4
+    k = n // t
+    local, parts = ts.tile_local_scan_cuda(op, x2[: t * k], t)
+    plocal, pparts = ts.tile_local_scan_reference(op, x2[: t * k], t)
+    torch.testing.assert_close(local, plocal, **tol)
+    y = ts.tile_apply_cuda(op, plocal, pparts)
+    torch.testing.assert_close(y, ts.tile_apply_reference(op, plocal, pparts),
+                               **tol)
+    if n <= 4096:
+        plan = get_plan("ladner_fischer", n)
+        got, _ = ts.fused_plan_cuda(
+            op, x2, plan_operands(plan, plan_cluster_size(n, m * m)).to(cuda))
+        want, _ = ts.fused_plan_reference(op, x2, plan_operands(plan, 1))
+        torch.testing.assert_close(got, want, **tol)
+
+
+def test_matmul_entry_is_exact_on_the_reference_case(cuda):
+    """tests/test_decoupled.py:100 on the card: 33 random 0/1 2 x 2
+    matrices, five tiles, every product an integer float32 holds."""
+    g = np.random.default_rng(5)
+    x = torch.as_tensor(g.integers(0, 2, (33, 2, 2)).astype(np.float32),
+                        device=cuda)
+    op = matmul_compose
+    reset_launch_counts()
+    got = scan(op, x, backend="decoupled", num_blocks=5)
+    assert launch_counts()["lookback_scan"] == 1
+    acc, ref = x[0], [x[0]]
+    for i in range(1, 33):
+        acc = x[i] @ acc
+        ref.append(acc)
+    assert torch.equal(got, torch.stack(ref))
 
 
 # ------------------------------------------- max entry, fused_round, pallas
@@ -753,8 +946,12 @@ def test_pallas_on_card_refuses_before_any_launch(cuda):
     for kw in ({}, {"num_blocks": 4}):
         with pytest.raises(KernelOpError, match="rigid_compose"):
             scan(lambda a, b: a + b, x, backend="pallas", **kw)
-        with pytest.raises(KernelOpError, match="float32"):
+        with pytest.raises(KernelOpError, match="float32 or bfloat16"):
             scan(torch.add, x.double(), backend="pallas", **kw)
+        with pytest.raises(KernelOpError, match="bfloat16"):
+            scan(matmul_compose,
+                 torch.zeros((64, 2, 2), device=cuda).bfloat16(),
+                 backend="pallas", **kw)
         with pytest.raises(KernelOpError):
             scan(torch.add, torch.ones((64, 5), device=cuda), backend="pallas",
                  **kw)
@@ -974,6 +1171,72 @@ def test_flash_attention_bf16_tensor_core_kernel_matches_plain(cuda, l, d,
                                atol=_BF16_TOL[1])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_noncausal_at_whisper_shape(cuda, dtype):
+    """Whisper's encoder: BH = 4 x 8 heads, 1,024 frames, d = 64,
+    non-causal (the kernel's causal == 0 branch), and the same queries
+    against twice as many keys (lq != lk), against the plain version."""
+    from repro_torch.kernels import flash_attention as fa
+
+    rng = np.random.default_rng(64)
+    t = lambda l: torch.tensor(rng.normal(size=(32, l, 64)) * 0.5,  # noqa: E731
+                               dtype=torch.float32, device=cuda).to(dtype)
+    q, k, v = t(1024), t(1024), t(1024)
+    k2, v2 = t(2048), t(2048)
+    rtol, atol = (2e-3, 2e-3) if dtype == torch.float32 else _BF16_TOL
+    reset_launch_counts()
+    for kk, vv in ((k, v), (k2, v2)):
+        o_k = fa.flash_attention(q, kk, vv, causal=False)
+        o_p = fa.flash_attention_reference(q, kk, vv, causal=False)
+        torch.cuda.synchronize()
+        assert o_k.shape == q.shape and o_k.dtype == dtype
+        torch.testing.assert_close(o_k.float(), o_p.float(), rtol=rtol,
+                                   atol=atol)
+    counts = launch_counts()
+    assert counts["flash_attention"] == counts["flash_attention_noncausal"] == 2
+    sdpa = torch.nn.functional.scaled_dot_product_attention(
+        q.view(4, 8, 1024, 64), k.view(4, 8, 1024, 64),
+        v.view(4, 8, 1024, 64), is_causal=False)
+    o_k = fa.flash_attention(q, k, v, causal=False)
+    torch.testing.assert_close(o_k.view_as(sdpa).float(), sdpa.float(),
+                               rtol=rtol, atol=atol)
+
+
+def test_moe_smoke_prefill_on_card_matches_cpu(cuda):
+    """A smoke MoE prefill and two decode steps on the card (flash for the
+    attention, the dispatch einsums on cuBLAS) against the same weights on
+    the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core._tree import tree_map
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_smoke_config("arctic-480b"),
+                              attn_backend="pallas", cache_dtype="float32")
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg)
+    params_c = tree_map(lambda t: t.to(cuda), params)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 64))).long()
+    outs, fed = [], []
+    for dev, p in (("cpu", params), (cuda, params_c)):
+        states = lm.init_decode_states(cfg, 2, 72, device=dev)
+        reset_launch_counts()
+        lg, states = lm.prefill(p, cfg, {"tokens": toks.to(dev)}, states)
+        seq = [lg]
+        for t in range(2):
+            # Both devices decode the CPU's greedy tokens.
+            if dev == "cpu":
+                fed.append(torch.argmax(seq[-1][:, -1], -1)[:, None])
+            lg, states = lm.decode_step(p, cfg, fed[t].to(dev), 64 + t,
+                                        states)
+            seq.append(lg)
+        outs.append([x.cpu() for x in seq])
+    assert launch_counts()["flash_attention"] == cfg.n_layers
+    for a, b in zip(*outs):
+        torch.testing.assert_close(b, a, rtol=2e-3, atol=2e-3)
+
+
 def test_flash_attention_refuses_what_it_does_not_take(cuda):
     from repro_torch.kernels import flash_attention as fa
 
@@ -1007,6 +1270,7 @@ def test_ssd_scan_and_attention_on_card_launch_the_kernels(cuda):
     reset_launch_counts()
     a = ops.attention(qa, ka, va, backend="pallas", block_q=128, block_k=128)
     assert launch_counts()["flash_attention"] == 1
+    assert launch_counts().get("flash_attention_noncausal", 0) == 0
     torch.testing.assert_close(a, ops.attention(qa, ka, va, backend="xla"),
                                rtol=2e-3, atol=2e-3)
 
@@ -1033,10 +1297,18 @@ def test_zamba2_smoke_server_on_card_goes_through_the_kernels(cuda):
 
 @pytest.mark.parametrize("arch,want", [
     ("xlstm-350m", {"chunk_local": 3, "chunk_apply": 3}),
-    ("qwen3-32b", {"flash_attention": 2})])
+    ("qwen3-32b", {"flash_attention": 2}),
+    ("phi3.5-moe-42b-a6.6b", {"flash_attention": 2}),
+    ("arctic-480b", {"flash_attention": 2}),
+    ("internvl2-1b", {"flash_attention": 2}),
+    ("whisper-base", {"flash_attention": 4,
+                      "flash_attention_noncausal": 2})])
 def test_new_smoke_servers_on_card_go_through_the_kernels(cuda, arch, want):
     """xLSTM's mLSTM blocks reach the chunk kernels (3 a superblock), the
-    dense blocks flash attention (one a layer); decode reaches none."""
+    dense and MoE blocks flash attention (one a layer; InternVL2 behind its
+    zero patches), Whisper's encoder and decoder one a layer each (the
+    encoder's also counted as non-causal; the cross-attention takes the
+    plain path); decode reaches none."""
     import dataclasses
 
     from repro_torch.configs import get_smoke_config

@@ -1,5 +1,5 @@
-"""The dense LM configurations and xLSTM-350M in the port against the
-reference, on their smoke configs with the reference's weights carried
+"""The dense LM configurations, xLSTM-350M, the MoE configurations and
+those with a frontend in the port against the reference, on their smoke configs with the reference's weights carried
 across by ``interop.params_from_numpy``, and their full configs walked on
 the meta device.
 
@@ -29,7 +29,8 @@ from repro_torch.launch import serve
 from repro_torch.models import layers, lm
 
 NEW_ARCHS = ["codeqwen1.5-7b", "internlm2-20b", "qwen3-32b", "qwen2-72b",
-             "xlstm-350m"]
+             "xlstm-350m", "phi3.5-moe-42b-a6.6b", "arctic-480b",
+             "internvl2-1b", "whisper-base"]
 BACKENDS = [("xla", "xla"), ("pallas", "pallas_interpret")]
 
 

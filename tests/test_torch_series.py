@@ -230,7 +230,9 @@ def test_chip_smoke_cpu_rehearsal_runs_the_flow():
         "series_restore", "simulate", "collective", "sharded", "lm_serve",
         "lm_serve codeqwen1.5-7b", "lm_serve internlm2-20b",
         "lm_serve qwen3-32b", "lm_serve qwen2-72b", "lm_serve xlstm-350m",
-        "lm_check", "lm_check xlstm-350m"]
+        "lm_serve phi3.5-moe-42b-a6.6b", "lm_serve arctic-480b",
+        "lm_serve internvl2-1b", "lm_serve whisper-base",
+        "lm_check", "lm_check xlstm-350m", "lm_check whisper-base"]
     assert '"ok"' not in out.stdout
 
 

@@ -19,7 +19,13 @@ import repro_torch.kernels._tiling as tt
 from repro.core.engine import get_plan as ref_get_plan
 from repro_torch.core._tree import tree_flatten
 from repro_torch.core.engine import get_plan
+from repro_torch.data.scan_rows import (
+    matmul_compose,
+    orthogonal_matrices,
+    telescoping_bf16,
+)
 from repro_torch.kernels.op_table import (
+    KernelDtypeError,
     KernelOpError,
     check_kernel_row,
     kernel_op_for,
@@ -239,6 +245,44 @@ def test_max_is_a_table_entry():
     assert check_kernel_row(tt.lift_masked(torch.maximum), 2, masked=True) == "max"
     with pytest.raises(KernelOpError, match="max"):
         check_kernel_row(torch.maximum, 5)
+
+
+@pytest.mark.parametrize("op,d,dtype,want", [
+    (torch.add, 2, torch.bfloat16, "add"),
+    (torch.maximum, 4, torch.bfloat16, "max"),
+    (tdef.compose_batched, 3, torch.float32, "rigid_compose"),
+    (matmul_compose, 9, torch.float32, "matmul"),
+    (tdef.compose_batched, 3, torch.bfloat16, KernelOpError),
+    (matmul_compose, 4, torch.bfloat16, KernelOpError),
+    (torch.add, 1, torch.float64, KernelDtypeError),
+    (torch.add, 1, torch.float16, KernelDtypeError),
+])
+def test_check_kernel_row_takes_each_entry_dtypes(op, d, dtype, want):
+    """The dtype each entry takes comes from the table; a dtype no entry
+    takes raises an error that is both a KernelOpError and a TypeError."""
+    if isinstance(want, str):
+        assert check_kernel_row(op, d, dtype=dtype) == want
+        return
+    with pytest.raises(want, match="the scan kernels carry") as info:
+        check_kernel_row(op, d, dtype=dtype)
+    assert isinstance(info.value, TypeError) == (want is KernelDtypeError)
+
+
+def test_scan_rows_telescope_and_compose():
+    """The bf16 rows' scan is exact in every grouping, and the matmul op
+    composes later @ earlier on matrices and on their packed rows."""
+    x, exact = telescoping_bf16(300, 2, seed=4)
+    assert x.dtype == exact.dtype == torch.bfloat16
+    assert torch.equal(torch.cumsum(x.double(), 0), exact.double())
+    assert torch.equal(torch.cumsum(x.double().flip(0), 0).flip(0)[0],
+                       exact[-1].double())
+    m = orthogonal_matrices(5, 3, seed=2)
+    eye = torch.eye(3).expand(5, 3, 3)
+    torch.testing.assert_close(m @ m.transpose(1, 2), eye, atol=1e-6, rtol=0)
+    assert kernel_op_of(matmul_compose) == "matmul"
+    assert torch.equal(matmul_compose(m[:4], m[1:]), m[1:] @ m[:4])
+    assert torch.equal(matmul_compose(m.reshape(5, 9)[:4], m.reshape(5, 9)[1:]),
+                       (m[1:] @ m[:4]).reshape(4, 9))
 
 
 @pytest.mark.parametrize("alg", ["ladner_fischer", "dissemination", "blelloch"])
