@@ -84,7 +84,21 @@ kernels' launch counts zeroed just before it and read just after:
   ``lm_check xlstm-350m`` the same at full width and depth (the float32
   chunk kernels at d = 256); ``lm_check whisper-base`` at full width and
   depth with the encoder on 1,024 seeded frames (6 non-causal flash
-  launches in the encoder, 6 causal in the decoder, counted apart).
+  launches in the encoder, 6 causal in the decoder, counted apart);
+* ``train xlstm-350m``: ``repro_torch.launch.train.train`` on xLSTM-350M at
+  full width and depth (24 blocks, bf16): 16 steps of 8 x 256 tokens from
+  the port's ``TokenPipeline`` at lr 3e-2, bf16 checkpoints every 8 steps,
+  a failure injected at step 10 (one restart from step 8): every step's
+  loss, the replayed steps' difference, step seconds and tokens/s, peak
+  memory, the checkpoints' seconds and bytes, a profile of one step; gated
+  on finite, falling losses, one restart and no kernel launch (training
+  runs on the "xla" backends: the kernels have no backward);
+* ``train phi3.5-moe-42b``: ``steps.make_train_step`` at full width and 2
+  of 32 layers (``reduced``: AdamW's state outgrows the card), 4 steps of
+  8 x 256: the MoE block's backward; step seconds, peak, grad norm, aux;
+* ``train_check``: xLSTM-350M at full width and 4 layers in float32, three
+  steps on the card against the same steps on the CPU (loss, grad norm,
+  params).
 
 Output, one line each: ``env``, ``build``, ``kernel warp_ncc``,
 ``kernel lookback_scan``, ``kernel tile_local_scan``, ``kernel tile_apply``,
@@ -104,15 +118,15 @@ chunk_scan's SASS and lookback_scan's longest walk),
 ``scan_engine``, ``serving``, ``series_restore``, ``simulate``,
 ``collective``, ``sharded``, ``lm_serve`` (and one a configuration),
 ``lm_check`` (and ``lm_check xlstm-350m``, ``lm_check whisper-base``),
-``kernels``
+``train xlstm-350m``, ``train phi3.5-moe-42b``, ``train_check``, ``kernels``
 (JSON), the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``.  Any
 failed phase raises and the script exits non-zero; without a CUDA device it
 exits 2 and prints no result.
 
 ``--cpu-rehearsal`` runs the series, compose, engine, serving, restore,
-simulate, collective, sharded and LM phases on the CPU at small sizes (the
-LM phases on each configuration's smoke config) with the kernels' plain
+simulate, collective, sharded, LM and training phases on the CPU at small
+sizes (the LM and training phases on each configuration's smoke config) with the kernels' plain
 versions, to rehearse the script's flow without a card; it skips the
 kernel phases and exits 3 without a result line.
 """
@@ -120,6 +134,7 @@ kernel phases and exits 3 without a result line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import math
@@ -2776,7 +2791,10 @@ def _kernel_group(name: str) -> str:
 def _profile(device, fn) -> tuple:
     """``fn()`` once under ``torch.profiler``: its wall ms, the device's
     kernel ms by group and the top kernels, and the device's idle share of
-    the wall time (1 - kernel time / wall time)."""
+    the wall time (1 - kernel time / wall time).  The device events are
+    summed from the trace's raw events: ``key_averages()`` would build a
+    Python object for each of the ~10^6 CPU and device events of a train
+    step first (~50 s)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2787,20 +2805,23 @@ def _profile(device, fn) -> tuple:
         out = fn()
         torch.cuda.synchronize(device)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    groups, kernels, launches = {}, [], 0
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) != DeviceType.CUDA:
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
             continue
-        us = getattr(e, "self_device_time_total", 0.0)
-        g = _kernel_group(e.key)
-        groups[g] = groups.get(g, 0.0) + us / 1e3
-        kernels.append((us / 1e3, e.count, e.key[:80]))
-        launches += e.count
+        ms, n = by_name.get(e.name(), (0.0, 0))
+        by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    groups = {}
+    for name, (ms, _) in by_name.items():
+        g = _kernel_group(name)
+        groups[g] = groups.get(g, 0.0) + ms
     device_ms = sum(groups.values())
-    kernels.sort(reverse=True)
+    kernels = sorted(((ms, n, name[:80]) for name, (ms, n) in by_name.items()),
+                     reverse=True)
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "device_idle_share": (1.0 - device_ms / wall_ms) if wall_ms else None,
-            "device_launches": launches, "device_ms_by_group": groups,
+            "device_launches": sum(n for _, n in by_name.values()),
+            "device_ms_by_group": groups,
             "top_kernels": [{"ms": ms, "count": n, "name": k}
                             for ms, n, k in kernels[:8]]}, out
 
@@ -2882,6 +2903,292 @@ def run_lm_check(device, smoke: bool = False, arch: str = "zamba2-7b",
     return out
 
 
+# train xlstm-350m: the reference's default arch at full width and depth
+# through train() itself, with one injected failure between checkpoints.
+# The lr is 10x the reference's loss test's 3e-3 (tests/test_system.py:19):
+# the step's cosine warmup (100 steps from 0, steps.py) keeps 3e-3 below
+# 4.5e-4 for 16 steps, and at full width the loss did not move (11.315 ->
+# 11.316 over the first and last four steps, H100); at 3e-2 it falls by
+# 0.12 (PERF.md, §6).
+TRAIN_ARCH = "xlstm-350m"
+TRAIN_STEPS = 16
+TRAIN_BATCH = 8
+TRAIN_SEQ = 256
+TRAIN_LR = 3e-2
+TRAIN_SAVE_EVERY = 8
+TRAIN_FAIL_AT = (10,)
+# train phi3.5-moe-42b: full width at 2 of 32 layers, make_train_step alone.
+MOE_TRAIN_ARCH = "phi3.5-moe-42b-a6.6b"
+MOE_TRAIN_LAYERS = 2
+MOE_TRAIN_STEPS = 4
+MOE_TRAIN_WHY = ("AdamW's float32 master, m and v beside the bf16 params "
+                 "and grads: 16 bytes a parameter, ~670 GB at 32 layers "
+                 "(41.9 B parameters) against one 80 GB card; "
+                 + _MULTI_DEVICE)
+# train_check: the card against the CPU, xLSTM-350M at full width, 4 layers
+# (one superblock), float32, batch 2 x 128, three steps.
+CHECK_TRAIN_LAYERS = 4
+CHECK_TRAIN_BATCH = 2
+CHECK_TRAIN_SEQ = 128
+CHECK_TRAIN_STEPS = 3
+# The CPU rehearsal's sequences: the smoke models' losses fall within 16
+# steps at 16 tokens, and the sLSTM's per-token loop stays short.
+REHEARSAL_SEQ = 16
+CHECK_LOSS_RTOL = 1e-4
+CHECK_GNORM_RTOL = 1e-3
+CHECK_PARAM_ATOL = 1e-4      # tests/test_substrate.py:210-212 (a train step)
+
+
+def _no_launches(what: str) -> dict:
+    """The kernel counts since the last reset; training reaches no kernel
+    (the reference's trains on "xla" through XLA), so any launch means a
+    path went around the autograd guard."""
+    from repro_torch.kernels import launch_counts
+
+    counts = launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"{what}: kernels launched while training: "
+                             f"{ {k: v for k, v in counts.items() if v} }")
+    return counts
+
+
+def _finite(xs, what: str) -> None:
+    if not all(math.isfinite(x) for x in xs):
+        raise AssertionError(f"{what}: non-finite values {xs}")
+
+
+def _leaves(tree) -> list:
+    from repro_torch.core._tree import tree_leaves
+
+    return tree_leaves(tree)
+
+
+def _train_batch(cfg, batch: int, seq: int, step: int, device) -> dict:
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+
+    pipe = TokenPipeline(PipelineConfig(vocab_size=cfg.vocab_size,
+                                        global_batch=batch, seq_len=seq))
+    return {k: torch.as_tensor(v, dtype=torch.long, device=device)
+            for k, v in pipe.batch_at(step).items()}
+
+
+def run_train(device, smoke: bool = False) -> dict:
+    """``repro_torch.launch.train.train`` on xLSTM-350M (24 blocks, d 1024,
+    bf16; its smoke config in a rehearsal): TRAIN_STEPS steps of 8 x 256
+    tokens from the port's TokenPipeline, checkpoints every 8 steps (bf16
+    params, float32 AdamW state), a failure injected at step 10, so the
+    run restores step 8 and replays 8-9.  Then one more step of the same
+    model profiled.  Gates: finite losses, the last four below the first
+    four, one restart, 16 steps, and no kernel launched."""
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import TrainConfig, train
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+
+    seq = REHEARSAL_SEQ if smoke else TRAIN_SEQ
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    cfg_t = TrainConfig(arch=TRAIN_ARCH, smoke=smoke, steps=TRAIN_STEPS,
+                        batch=TRAIN_BATCH, seq_len=seq, lr=TRAIN_LR,
+                        save_every=TRAIN_SAVE_EVERY, fail_at=TRAIN_FAIL_AT,
+                        ckpt_dir=ckpt_dir, log_every=4, device=str(device))
+    on_card = device.type == "cuda"
+    _free_device(device)
+    _sync(device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        # train()'s progress lines go to stderr: stdout holds result lines.
+        with contextlib.redirect_stdout(sys.stderr):
+            out = train(cfg_t)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    _sync(device)
+    wall_s = time.perf_counter() - t0
+    counts = _no_launches("train")
+    peak = torch.cuda.max_memory_allocated(device) if on_card else None
+    by_step, first_run = {}, {}
+    for step, loss in zip(out["loss_steps"], out["losses"]):
+        if step in by_step:
+            first_run[step] = by_step[step]
+        by_step[step] = loss
+    losses = [by_step[i] for i in range(TRAIN_STEPS)]
+    replay_diff = max((abs(by_step[i] - first_run[i]) for i in first_run),
+                      default=None)
+    _finite(out["losses"], "train")
+    head, tail = float(np.mean(losses[:4])), float(np.mean(losses[-4:]))
+    if not tail < head:
+        raise AssertionError(f"train: loss did not fall ({head} -> {tail})")
+    if out["restarts"] != 1 or out["steps"] != TRAIN_STEPS:
+        raise AssertionError(f"train: restarts {out['restarts']}, steps "
+                             f"{out['steps']}")
+    acfg = _lm_config(smoke, TRAIN_ARCH)
+
+    # One step of the same model, profiled, after a warm-up step.
+    params = lm.init_params(torch.Generator(device=device).manual_seed(0),
+                            acfg)
+    opt = adamw.init(params, adamw.AdamWConfig(lr=TRAIN_LR))
+    step_fn = steps.make_train_step(acfg, adamw.AdamWConfig(lr=TRAIN_LR))
+    batch = _train_batch(acfg, TRAIN_BATCH, seq, 0, device)
+    step_fn(params, opt, batch)
+    profile = None
+    if on_card:
+        profile, _ = _profile(device, lambda: step_fn(params, opt, batch))
+        profile.pop("top_kernels")
+    n_params = sum(t.numel() for t in _leaves(params))
+    del params, opt
+    _free_device(device)
+    mean_s = out["mean_step_s"]
+    return {
+        "arch": acfg.name, "layers": acfg.n_layers, "d_model": acfg.d_model,
+        "dtype": acfg.param_dtype, "params": n_params,
+        "batch": TRAIN_BATCH, "seq_len": seq, "lr": TRAIN_LR,
+        "steps": out["steps"], "restarts": out["restarts"],
+        "save_every": TRAIN_SAVE_EVERY, "fail_at": list(TRAIN_FAIL_AT),
+        "losses": losses, "loss_steps_run": out["loss_steps"],
+        "losses_run": out["losses"],
+        "replay_max_abs_diff": replay_diff,
+        "mean_first4": head, "mean_last4": tail,
+        "step_s": out["step_s"], "mean_step_s": mean_s,
+        "tokens_per_s": (TRAIN_BATCH * seq / mean_s) if mean_s else None,
+        "wall_s": wall_s, "max_memory_allocated": peak,
+        "checkpoint_save_s": out["checkpoint"]["save"],
+        "checkpoint_write_s": out["checkpoint"]["write"],
+        "checkpoint_restore_s": out["checkpoint"]["restore"],
+        "checkpoint_bytes": out["checkpoint"]["bytes"],
+        "launches": counts, "profile_one_step": profile,
+    }
+
+
+def run_train_moe(device, smoke: bool = False) -> dict:
+    """``steps.make_train_step`` on phi3.5-moe-42b at full width and
+    MOE_TRAIN_LAYERS of 32 layers (its smoke config in a rehearsal), bf16,
+    MOE_TRAIN_STEPS steps of 8 x 256 tokens, no checkpoints: the MoE
+    block's backward (capacity routing, the one-hot dispatch einsums, the
+    aux loss) and GQA attention's at full width.  Gates: finite numbers, a
+    peak under the card's memory, no kernel launched."""
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+
+    cut = {} if smoke else {"n_layers": MOE_TRAIN_LAYERS}
+    cfg = _lm_config(smoke, MOE_TRAIN_ARCH, **cut)
+    seq = REHEARSAL_SEQ if smoke else TRAIN_SEQ
+    on_card = device.type == "cuda"
+    _free_device(device)
+    _sync(device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    params = lm.init_params(torch.Generator(device=device).manual_seed(0), cfg)
+    opt = adamw.init(params)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    step_fn = steps.make_train_step(cfg)
+    reset_launch_counts()
+    step_s, metrics = [], []
+    for i in range(MOE_TRAIN_STEPS):
+        batch = _train_batch(cfg, TRAIN_BATCH, seq, i, device)
+        _sync(device)
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        _sync(device)
+        step_s.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    counts = _no_launches("train moe")
+    peak = torch.cuda.max_memory_allocated(device) if on_card else None
+    for m in metrics:
+        _finite(list(m.values()), "train moe")
+    if on_card:
+        total = torch.cuda.get_device_properties(device).total_memory
+        if not peak < total:
+            raise AssertionError(f"train moe: peak {peak} B >= {total} B")
+    del params, opt
+    _free_device(device)
+    return {
+        "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "n_experts": cfg.n_experts, "top_k": cfg.top_k,
+        "reduced": (None if smoke else {
+            "n_layers": [MOE_TRAIN_LAYERS,
+                         _lm_config(False, MOE_TRAIN_ARCH).n_layers],
+            "why": MOE_TRAIN_WHY}),
+        "dtype": cfg.param_dtype, "params": n_params,
+        "batch": TRAIN_BATCH, "seq_len": seq, "init_s": init_s,
+        "step_s": step_s,
+        "mean_step_s_after_first": float(np.mean(step_s[1:])),
+        "metrics": metrics, "max_memory_allocated": peak,
+        "card_memory": (torch.cuda.get_device_properties(device).total_memory
+                        if on_card else None),
+        "launches": counts,
+    }
+
+
+def run_train_check(device, smoke: bool = False) -> dict:
+    """The port's train step on ``device`` against the same step on the
+    CPU: xLSTM-350M at full width and CHECK_TRAIN_LAYERS layers in float32
+    (its smoke config in a rehearsal), batch 2 x 128, three steps from the
+    same seeded params (drawn on the CPU, carried to the device with
+    ``interop.params_from_numpy``).  Gates: each step's loss within
+    CHECK_LOSS_RTOL, grad norm within CHECK_GNORM_RTOL, params after the
+    third step within CHECK_PARAM_ATOL."""
+    from repro_torch.core._tree import tree_map
+    from repro_torch.interop import params_from_numpy, to_numpy
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+
+    kw = dict(param_dtype="float32", compute_dtype="float32",
+              cache_dtype="float32")
+    if not smoke:
+        kw["n_layers"] = CHECK_TRAIN_LAYERS
+    cfg = _lm_config(smoke, TRAIN_ARCH, **kw)
+    cpu = torch.device("cpu")
+    p_cpu = lm.init_params(torch.Generator().manual_seed(3), cfg)
+    start = to_numpy(tree_map(torch.clone, p_cpu))   # the step is in place
+    p_dev = params_from_numpy(start, device=device)
+    o_cpu, o_dev = adamw.init(p_cpu), adamw.init(p_dev)
+    step_fn = steps.make_train_step(cfg)
+    seq = REHEARSAL_SEQ if smoke else CHECK_TRAIN_SEQ
+    rows = []
+    for i in range(CHECK_TRAIN_STEPS):
+        p_cpu, o_cpu, m_cpu = step_fn(p_cpu, o_cpu, _train_batch(
+            cfg, CHECK_TRAIN_BATCH, seq, i, cpu))
+        p_dev, o_dev, m_dev = step_fn(p_dev, o_dev, _train_batch(
+            cfg, CHECK_TRAIN_BATCH, seq, i, device))
+        rows.append({k: [float(m_dev[k]), float(m_cpu[k])]
+                     for k in ("loss", "grad_norm", "lr")})
+    param_diff = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        _leaves(p_dev), _leaves(p_cpu)))
+    moved = max(float(np.abs(b.numpy() - a).max()) for a, b in zip(
+        _leaves(start), _leaves(p_cpu)))
+    for i, r in enumerate(rows):
+        for k, rtol in (("loss", CHECK_LOSS_RTOL),
+                        ("grad_norm", CHECK_GNORM_RTOL)):
+            got, want = r[k]
+            if not abs(got - want) <= rtol * abs(want):
+                raise AssertionError(f"train_check step {i} {k}: {got} on "
+                                     f"{device}, {want} on the CPU")
+    if not param_diff <= CHECK_PARAM_ATOL:
+        raise AssertionError(f"train_check: params differ by {param_diff}")
+    del p_cpu, p_dev, o_cpu, o_dev
+    _free_device(device)
+    return {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "dtype": "float32", "batch": CHECK_TRAIN_BATCH,
+            "seq_len": seq, "steps": rows,
+            "tol": {"loss_rtol": CHECK_LOSS_RTOL,
+                    "grad_norm_rtol": CHECK_GNORM_RTOL,
+                    "param_atol": CHECK_PARAM_ATOL},
+            "param_max_abs_diff": param_diff,
+            "param_max_abs_change": moved}
+
+
 def _close_pool() -> None:
     """Stop the shared worker pool and wait for its threads, so none is
     alive while PyTorch tears down at exit."""
@@ -2896,8 +3203,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="run the series, engine, serving, restore, "
-                         "simulate, collective, sharded and LM phases on "
-                         "the CPU at small sizes with the plain kernels; "
+                         "simulate, collective, sharded, LM and training "
+                         "phases on the CPU at small sizes with the plain "
+                         "kernels; "
                          "exits 3 with no result line")
     ap.add_argument("--previous-csrc", default=None,
                     help="csrc directory of the kernels' previous designs "
@@ -2935,6 +3243,9 @@ def main() -> int:
                                                   arch="xlstm-350m"))
         _line("lm_check whisper-base", run_lm_check(dev, smoke=True,
                                                     arch="whisper-base"))
+        _line(f"train {TRAIN_ARCH}", run_train(dev, smoke=True))
+        _line("train phi3.5-moe-42b", run_train_moe(dev, smoke=True))
+        _line("train_check", run_train_check(dev, smoke=True))
         _close_pool()
         print("cpu rehearsal: no result", file=sys.stderr)
         return 3
@@ -3036,6 +3347,9 @@ def main() -> int:
                              f"{check_w['flash_noncausal_launches']} "
                              f"non-causal, {check_w['flash_causal_launches']} "
                              "causal")
+    _line(f"train {TRAIN_ARCH}", run_train(dev))
+    _line("train phi3.5-moe-42b", run_train_moe(dev))
+    _line("train_check", run_train_check(dev))
 
     k["launches"] = series["warp_ncc_launches"]
     k["launches_series_hier"] = hier["warp_ncc_launches"]

@@ -11,10 +11,18 @@ Leaves are flattened as ``jax.tree`` flattens them — dict entries in
 sorted-key order, sequences by index, named tuples by field, ``None`` as
 an empty subtree — and keyed by the same ``/``-joined paths.  Writes go to
 a tmp dir and are renamed only after fsync — a crash never corrupts the
-latest checkpoint.  ``save`` copies every tensor to the host first;
+latest checkpoint.  ``save`` copies every tensor to the host before it
+returns (the trainer then updates its state in place, as the reference's
+donated step does), and only the files are written in the background.
 ``restore`` builds the tensors on the device it is given, in place of the
 reference's target shardings.  With no device it restores onto the card
 (and raises where there is none), never quietly onto the CPU.
+
+bfloat16 leaves are stored as the reference stores its ``ml_dtypes``
+bfloat16 arrays: their bits as 2-byte void (``|V2``), so ``np.load`` of
+either package's file gives the same bytes.  ``restore`` views such a leaf
+back as bfloat16 (the reference's own restore of it raises: numpy has no
+cast from ``|V2``); every other dtype is cast to the prototype's.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -70,16 +79,36 @@ def _flatten_with_paths(tree) -> List[Tuple[str, Any]]:
 
 
 def _to_host(leaf) -> np.ndarray:
+    """A host copy of ``leaf`` that later in-place updates do not reach."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        t = leaf.detach()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).to("cpu", copy=True).numpy().view("V2")
+        return t.to("cpu", copy=True).numpy()
+    return np.array(leaf)
+
+
+def _from_host(arr: np.ndarray, dtype: torch.dtype,
+               device: torch.device) -> torch.Tensor:
+    """A stored leaf as a tensor of ``dtype`` on ``device``: a ``|V2``
+    leaf holds bfloat16 bits and is viewed as such, then cast."""
+    if arr.dtype == np.dtype("V2"):
+        t = torch.from_numpy(np.array(arr).view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr))
+    return t.to(dtype=dtype, device=device)
 
 
 class Checkpointer:
+    """``timings`` lists the seconds of each ``save``'s host copy (what the
+    caller waits for), each write of the files, and each ``restore``."""
+
     def __init__(self, directory: str, *, keep: int = 3, async_save: bool = True):
         self.dir = directory
         self.keep = keep
         self.async_save = async_save
+        self.timings: Dict[str, List[float]] = {"save": [], "write": [],
+                                                "restore": []}
         self._pool = ThreadPoolExecutor(max_workers=1)
         self._pending: Optional[Future] = None
         os.makedirs(directory, exist_ok=True)
@@ -87,7 +116,9 @@ class Checkpointer:
     # ------------------------------------------------------------------
     def save(self, step: int, tree, metadata: Optional[Dict] = None) -> None:
         """Snapshot device values to the host, then write in the background."""
+        t0 = time.perf_counter()
         host_tree = _map_with_paths(lambda _k, leaf: _to_host(leaf), tree)
+        self.timings["save"].append(time.perf_counter() - t0)
         if self._pending is not None:
             self._pending.result()  # one in flight at a time
         if self.async_save:
@@ -103,6 +134,7 @@ class Checkpointer:
             self._pending = None
 
     def _write(self, step: int, host_tree, metadata: Dict) -> None:
+        t0 = time.perf_counter()
         final = os.path.join(self.dir, f"step_{step:08d}")
         tmp = final + ".tmp"
         if os.path.exists(tmp):
@@ -125,6 +157,7 @@ class Checkpointer:
             shutil.rmtree(final)
         os.rename(tmp, final)
         self._gc()
+        self.timings["write"].append(time.perf_counter() - t0)
 
     def _gc(self) -> None:
         steps = self.all_steps()
@@ -176,6 +209,7 @@ class Checkpointer:
         Every leaf comes back as a tensor of its prototype's dtype on
         ``device`` (the card when None)."""
         dev = resolve_device(device)
+        t0 = time.perf_counter()
         by_key, metadata, step = self.restore_raw(step=step)
 
         def leaf(key, proto):
@@ -188,9 +222,10 @@ class Checkpointer:
                     f"{key}: checkpoint shape {arr.shape} != target "
                     f"{tuple(proto.shape)}"
                 )
-            return torch.from_numpy(np.array(arr)).to(
-                dtype=proto.dtype, device=dev
-            )
+            return _from_host(arr, proto.dtype, dev)
 
         tree = _map_with_paths(leaf, target_tree)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        self.timings["restore"].append(time.perf_counter() - t0)
         return tree, metadata, step

@@ -54,6 +54,18 @@ def tree_index(tree: Any, i) -> Any:
     return tree_map(lambda t: t[i], tree)
 
 
+def tree_unbind(tree: Any, n: int) -> List[Any]:
+    """The ``n`` trees of ``tree``'s leaves unbound along their leading
+    axis: one ``unbind`` a leaf, where ``tree_index`` for each i would make
+    n ``select``s (whose backward passes each allocate a zero tensor the
+    size of the whole leaf)."""
+    leaves, treedef = tree_flatten(tree)
+    cols = [t.unbind(0) for t in leaves]
+    if any(len(c) != n for c in cols):
+        raise ValueError(f"leading axes {[len(c) for c in cols]}, want {n}")
+    return [tree_unflatten(treedef, [c[i] for c in cols]) for i in range(n)]
+
+
 def tree_flatten(tree: Any) -> Tuple[List[Any], Any]:
     """``(leaves, treedef)`` with dict entries in sorted-key order (the
     order ``jax.tree.flatten`` uses).  ``treedef`` is a hashable nested

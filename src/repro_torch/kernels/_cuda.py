@@ -13,6 +13,9 @@ Every kernel wrapper owns a :class:`LaunchCounter` registered here, which it
 bumps exactly where it launches the kernel; ``launch_counts()`` and
 ``reset_launch_counts()`` let a run show which kernels its path went
 through.
+
+No kernel here has a backward: :func:`refuse_autograd` is each wrapper's
+guard against a launch whose output autograd would need to differentiate.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ import subprocess
 import threading
 import time
 from typing import Dict, List, Optional, Sequence
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "kernels", "csrc")
@@ -78,6 +83,26 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for c in _counters.values():
         c.reset()
+
+
+def refuse_autograd(what: str, *tensors) -> None:
+    """Raise when autograd would need ``what``'s backward: grad mode is on
+    and an operand requires grad.  A kernel launched through ctypes writes
+    a fresh tensor with no ``grad_fn``, so a backward pass through it would
+    silently drop the gradient of everything upstream.  The reference
+    defines no backward for its Pallas kernels either (``jax.grad``
+    through them raises); training runs on the "xla" backends.  Operands
+    that are not tensors are ignored; under ``torch.no_grad()`` or with
+    detached operands nothing is checked further."""
+    if not torch.is_grad_enabled():
+        return
+    if any(isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{what}: no gradient through a kernel.  The reference defines "
+            "no backward for its Pallas kernels, and neither does the port; "
+            "train on the \"xla\" backends, or run the kernel under "
+            "torch.no_grad() / on detached tensors"
+        )
 
 
 def _nvcc() -> str:

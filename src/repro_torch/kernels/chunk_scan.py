@@ -166,6 +166,7 @@ def _raise_on(err: int, what: str, error_string) -> None:
 def chunk_local_cuda(c, b, v, ca) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the ``chunk_local`` kernel; raises on anything it does not
     take (device, dtype, layout, sizes)."""
+    _cuda.refuse_autograd("chunk_local kernel", c, b, v, ca)
     g, l, dk, dv = _local_shapes(c, b, v, ca)
     code = _check_kernel_args("chunk_local", l, dk, dv,
                               (("c", c), ("b", b), ("v", v)), (("ca", ca),))
@@ -187,6 +188,7 @@ def chunk_local_cuda(c, b, v, ca) -> Tuple[torch.Tensor, torch.Tensor]:
 def chunk_apply_cuda(c, ca, y_intra, s_prev) -> torch.Tensor:
     """Launch the ``chunk_apply`` kernel; raises on anything it does not
     take."""
+    _cuda.refuse_autograd("chunk_apply kernel", c, ca, y_intra, s_prev)
     g, l, dk, dv = _apply_shapes(c, ca, y_intra, s_prev)
     code = _check_kernel_args("chunk_apply", l, dk, dv,
                               (("c", c), ("y_intra", y_intra)),

@@ -93,6 +93,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          block_q: int = 256, block_k: int = 512):
     """Launch the kernel; raises on anything it does not take (device,
     dtype, layout, head dim)."""
+    _cuda.refuse_autograd("flash_attention kernel", q, k, v)
     bh, lq, lk, d = _check_blocks(q, k, v, block_q, block_k)
     if not (8 <= d <= MAX_D and d % 8 == 0):
         raise ValueError(f"flash_attention kernel: head dim {d} is not a "

@@ -195,6 +195,7 @@ def lookback_scan_cuda(
     on the same device that receives each tile's lookback walk length
     (tiles > 0; how many predecessors the walk read), for tests and
     measurements of the protocol."""
+    _cuda.refuse_autograd("lookback_scan kernel", x, seed)
     t, k, d = _check_args(x, num_tiles)
     masked = bool(getattr(op, "kernel_masked", False))
     name = check_kernel_row(op, d, masked, x.dtype)

@@ -20,6 +20,11 @@ Backends:
                           the input dtype between the phases, the kernel
                           backends do
 
+The kernel backends have no backward, on either device, as the reference's
+Pallas kernels have none (``jax.grad`` through them raises): under grad
+mode with an operand that requires grad they raise
+(``_cuda.refuse_autograd``).  Training runs on "xla".
+
 Sequence sharding over mesh axes (``axis_names``) waits for LM
 multi-device (``ROADMAP.md`` Queue 1).
 """
@@ -32,6 +37,7 @@ import torch
 
 from repro_torch.core.scan import prefix_scan
 
+from . import _cuda
 from . import chunk_scan as _cs
 from . import flash_attention as _fa
 
@@ -76,6 +82,9 @@ def ssd_scan(
     Returns: y (B, H, L, dv) in ``v``'s dtype.
     """
     _no_sequence_sharding(axis_names)
+    if backend in _KERNEL_BACKENDS:
+        _cuda.refuse_autograd(f"ssd_scan(backend={backend!r})", q, k, v,
+                              log_a)
     bsz, h, l, dk = q.shape
     dv = v.shape[-1]
     assert l % chunk == 0, f"L={l} % chunk={chunk}"
@@ -163,6 +172,8 @@ def attention(
 
     GQA kv heads are repeated to Hq.  backend as in ``ssd_scan``.
     """
+    if backend in _KERNEL_BACKENDS:
+        _cuda.refuse_autograd(f"attention(backend={backend!r})", q, k, v)
     bsz, hq, lq, d = q.shape
     hkv = k.shape[1]
     if hkv != hq:

@@ -81,6 +81,7 @@ def fused_round_reference(op: Op, y: torch.Tensor, src: torch.Tensor) -> torch.T
 def fused_round_cuda(op: Op, y: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     """Launch the ``fused_round`` kernel into a new buffer (all reads of the
     round happen before any write); raises on anything it does not take."""
+    _cuda.refuse_autograd("fused_round kernel", y)
     n, d = _round_args(y, src)
     name = check_kernel_row(op, d, dtype=y.dtype)
     _check_tensor("fused_round kernel", y)
@@ -169,6 +170,7 @@ def fused_plan_cuda(
     ``plan_ops.cluster`` CTAs; raises on anything it does not take, and
     when the card refuses the cluster (its shared memory, its size, or no
     room for it): nothing runs in its place."""
+    _cuda.refuse_autograd("fused_plan kernel", y)
     n, d = _plan_args(y, plan_ops)
     name = check_kernel_row(op, d, dtype=y.dtype)
     _check_tensor("fused_plan kernel", y)
@@ -279,6 +281,7 @@ def tile_local_scan_cuda(
     not take (op outside the table, width, device, dtype).  Each tile is
     cut into chunks of at most ``CUDA_TILE_ROWS`` rows, one block a chunk,
     chained within the tile; the chunk board is scratch allocated here."""
+    _cuda.refuse_autograd("tile_local_scan kernel", x)
     t, k, d = _split(x, num_tiles)
     name = check_kernel_row(op, d, dtype=x.dtype)
     _check_tensor("tile_local_scan kernel", x)
@@ -308,6 +311,7 @@ def tile_apply_cuda(
 ) -> torch.Tensor:
     """Launch the ``tile_apply`` kernel; raises on anything it does not
     take."""
+    _cuda.refuse_autograd("tile_apply kernel", local, seeds)
     if local.dim() != 3 or seeds.shape != (local.shape[0], local.shape[2]):
         raise ValueError(
             f"tile_apply takes local (T, K, d) and seeds (T, d), got "

@@ -143,6 +143,7 @@ def _check_images(img: torch.Tensor, ref: torch.Tensor) -> None:
 def _launch(img, ref, angle, shift, tile: int, *, with_ncc: bool):
     """One launch of the warp kernel (and of the fold when ``with_ncc``):
     ``(warped, sums, [ncc, 1 - ncc] or None)``."""
+    _cuda.refuse_autograd("warp_ncc kernel", img, ref, angle, shift)
     _check_shapes(img, ref, tile)
     _check_images(img, ref)
     dev = img.device

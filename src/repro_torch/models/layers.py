@@ -10,9 +10,10 @@ float32 copy lives beside the weights; :func:`params_into` hands that
 storage out from tensors the caller made (``lm.init_params`` fills its
 stacked leaves a superblock at a time) or walks the shapes on the meta
 device.  The reference's ``shardctx`` constraints are no-ops without a mesh
-and are dropped here.  ``chunked_cross_entropy`` and
-``softmax_cross_entropy`` belong to training and come with it
-(``ROADMAP.md``).
+and are dropped here.  The training loss is ``chunked_cross_entropy``: an
+online logsumexp over the chunk-major head's vocabulary chunks, each chunk
+recomputed in the backward pass, so (B, L, V) logits never exist;
+``softmax_cross_entropy`` over materialized logits is its oracle.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import math
 import threading
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 # Values a float32 draw holds at a time (64 MB).
 _PIECE = 1 << 24
@@ -132,6 +134,13 @@ def embed(p, ids):
     return p["table"][ids]
 
 
+def unembed(p, x, softcap: float = 0.0):
+    logits = (x @ p["table"].T).float()
+    if softcap:
+        logits = torch.tanh(logits / softcap) * softcap
+    return logits
+
+
 def rope_freqs(hd: int, theta: float, device=None):
     return theta ** (-torch.arange(0, hd // 2, dtype=torch.float32,
                                    device=device) / (hd // 2))
@@ -188,3 +197,60 @@ def head_logits(p, x, softcap: float = 0.0):
     if softcap:
         logits = torch.tanh(logits / softcap) * softcap
     return logits
+
+
+def softmax_cross_entropy(logits, labels, ignore_id: int = -1):
+    """logits (..., V) fp32; labels (...) int; mean over non-ignored."""
+    mask = labels != ignore_id
+    labels = torch.where(mask, labels, 0)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = (logz - gold) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1)
+
+
+def _ce_chunk(m, s, gold, x, w, is_here, chunk_pos, softcap: float):
+    """One vocabulary chunk of :func:`chunked_cross_entropy`: the chunk's
+    logits, folded into the running max ``m``, the rescaled sum of
+    exponentials ``s`` and the gold logit of the labels that fall in it."""
+    lg = (x @ w).float()                                    # (B, L, vc)
+    if softcap:
+        lg = torch.tanh(lg / softcap) * softcap
+    m_new = torch.maximum(m, lg.amax(-1))
+    s = s * torch.exp(m - m_new) + torch.exp(lg - m_new[..., None]).sum(-1)
+    g = torch.gather(lg, -1, chunk_pos[..., None])[..., 0]
+    gold = gold + torch.where(is_here, g, 0.0)
+    return m_new, s, gold
+
+
+def chunked_cross_entropy(p, x, labels, *, softcap: float = 0.0,
+                          ignore_id: int = -1):
+    """CE over a chunk-major head without materializing full logits.
+
+    A loop over the head's (NC, D, V/NC) vocabulary chunks with an online
+    logsumexp, as the reference's ``lax.scan``.  Under grad each chunk runs
+    inside a non-reentrant ``torch.utils.checkpoint``, so the backward pass
+    re-runs its matmul (the reference's scan-remat): one extra head matmul
+    for O(V/NC) live memory instead of O(V).
+    """
+    nc, d, vc = p["w"].shape
+    mask = labels != ignore_id
+    labels_s = torch.where(mask, labels, 0).long()
+    chunk_id = labels_s // vc
+    chunk_pos = labels_s % vc
+    b, l = labels.shape
+    m = torch.full((b, l), -1e30, dtype=torch.float32, device=x.device)
+    s = torch.zeros((b, l), dtype=torch.float32, device=x.device)
+    gold = torch.zeros((b, l), dtype=torch.float32, device=x.device)
+    remat = torch.is_grad_enabled()
+    for ci, w in enumerate(p["w"].unbind(0)):
+        args = (m, s, gold, x, w, chunk_id == ci, chunk_pos, softcap)
+        if remat:
+            # The chunk draws no random numbers: no RNG state to keep.
+            m, s, gold = checkpoint(_ce_chunk, *args, use_reentrant=False,
+                                    preserve_rng_state=False)
+        else:
+            m, s, gold = _ce_chunk(*args)
+    logz = m + torch.log(s)
+    nll = (logz - gold) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1)

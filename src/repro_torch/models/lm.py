@@ -1,10 +1,15 @@
-"""The unified language model: superblocks, prefill and decode
-(port of ``repro/models/lm.py``).
+"""The unified language model: superblocks, the training loss, prefill and
+decode (port of ``repro/models/lm.py``).
 
 A model is ``n_super`` repetitions of ``cfg.block_pattern`` (a
 "superblock").  Parameters of pattern positions are stacked with leading
 dim n_super, as in the reference; the forward pass is a Python loop over
-superblocks that indexes them.  ``init_params`` allocates each stacked leaf
+superblocks, each stacked leaf unbound once a pass.  In training with
+``cfg.remat`` each superblock runs inside a non-reentrant
+``torch.utils.checkpoint``, as the reference wraps it in ``jax.checkpoint``:
+its activations are recomputed in the backward pass.  ``loss_fn`` is the
+vocab-chunked cross entropy plus ``AUX_WEIGHT`` times the MoE aux loss.
+``init_params`` allocates each stacked leaf
 once and draws every superblock straight into its slice, so its peak is
 the weights plus a float32 draw of at most 64 MB (``layers.params_into``).
 ``shared_attn`` blocks (zamba2) keep one unstacked parameter set used by
@@ -17,9 +22,8 @@ at d_model width.  An encoder-decoder config stacks its encoder's ``attn``
 blocks under ``params["encoder"]``, and every decoder block cross-attends
 the encoder output, which the decode states carry (``enc_out``).
 
-Not ported yet: ``loss_fn`` (LM training, ``ROADMAP.md`` Queue 1); it
-raises.  The reference's ``shardctx`` constraints are no-ops without a
-mesh and are dropped.
+The reference's ``shardctx`` constraints are no-ops without a mesh and are
+dropped.
 """
 
 from __future__ import annotations
@@ -27,13 +31,15 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core._tree import tree_index, tree_map, tree_stack
+from repro_torch.core._tree import tree_index, tree_map, tree_stack, tree_unbind
 
 from .attention import attention_block
 from .blocks import _norm, block_init, block_residual, block_state_init
 from .config import ArchConfig
 from .layers import (
+    chunked_cross_entropy,
     embed,
     embed_init,
     head_init,
@@ -44,6 +50,8 @@ from .layers import (
     rmsnorm_init,
     swiglu,
 )
+
+AUX_WEIGHT = 0.01
 
 
 def _stacked_init(gen: torch.Generator, cfg: ArchConfig, kind: str,
@@ -112,8 +120,7 @@ def _encode(params, cfg: ArchConfig, frames):
     x = frames.to(cfg.cdtype)
     positions = torch.arange(x.shape[1], device=x.device)
     enc = params["encoder"]
-    for i in range(cfg.encoder_layers):
-        p = tree_index(enc["blocks"], i)
+    for p in tree_unbind(enc["blocks"], cfg.encoder_layers):
         h = rmsnorm(p["ln1"], x, cfg.norm_eps)
         a = attention_block(p["attn"], cfg, h, positions, causal=False)
         h = _norm(p["ln2"], cfg, x, x.float() + a.float())
@@ -146,16 +153,8 @@ def _run_blocks(params, cfg: ArchConfig, x, *, positions, mode, states=None,
     -> stacked (n_super, ...); otherwise dict sb{i} -> {b{j}: state}."""
     pattern = cfg.block_pattern
     has_states = states is not None
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    per_super = []
-    for i in range(cfg.n_super):
-        layer_params = tree_index(params["blocks"], i)
-        if not has_states:
-            layer_states = {}
-        elif cfg.scan_layers:
-            layer_states = tree_index(states, i)
-        else:
-            layer_states = states.get(f"sb{i}", {})
+
+    def superblock(x, aux, layer_params, layer_states):
         new_states = {}
         # The superblock's input comes rounded (the reference's scan carry);
         # inside it, each block's first norm reads the float32 residual sum.
@@ -173,6 +172,31 @@ def _run_blocks(params, cfg: ArchConfig, x, *, positions, mode, states=None,
             aux = aux + a
             if has_states:
                 new_states[f"b{j}"] = nst
+        return x, aux, new_states
+
+    # jax.checkpoint(superblock): the backward pass re-runs each superblock
+    # from its input.  The recompute routes a MoE block's top-k exactly as
+    # the first pass did: the same inputs give the same router logits, and
+    # topk's choice among them is deterministic.  Nothing draws random
+    # numbers, so no RNG state is kept.
+    remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    per_super = []
+    for i, layer_params in enumerate(tree_unbind(params["blocks"],
+                                                 cfg.n_super)):
+        if not has_states:
+            layer_states = {}
+        elif cfg.scan_layers:
+            layer_states = tree_index(states, i)
+        else:
+            layer_states = states.get(f"sb{i}", {})
+        if remat:
+            x, aux, new_states = checkpoint(
+                superblock, x, aux, layer_params, layer_states,
+                use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, aux, new_states = superblock(x, aux, layer_params,
+                                            layer_states)
         per_super.append(new_states)
     if not has_states:
         return x, aux, None
@@ -202,10 +226,13 @@ def forward_train(params, cfg: ArchConfig, batch, *, seq_axes=None):
 
 
 def loss_fn(params, cfg: ArchConfig, batch, *, seq_axes=None):
-    raise NotImplementedError(
-        "training (loss_fn, chunked_cross_entropy) is not ported yet "
-        "(LM training, ROADMAP.md Queue 1)"
+    """Training loss with vocab-chunked CE (never materializes full
+    logits): ``(ce + AUX_WEIGHT * aux, {"ce": ce, "aux": aux})``."""
+    x, aux = forward_hidden(params, cfg, batch, seq_axes=seq_axes)
+    loss = chunked_cross_entropy(
+        params["head"], x, batch["labels"], softcap=cfg.logits_softcap,
     )
+    return loss + AUX_WEIGHT * aux, {"ce": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -1508,3 +1508,61 @@ def test_sharded_on_a_card_mesh_composes_and_routes_by_op(cuda):
     assert sharded.last_stats.phase3_route == "plain"
     om, oc = scan(aff, (m, c), backend="vector")
     assert torch.equal(ym, om) and torch.equal(yc, oc)
+
+
+def _autograd_entries(dev):
+    """Each kernel's CUDA entry with small inputs on ``dev``: (name, the
+    call, its float operands)."""
+    from repro_torch.kernels import chunk_scan as cs
+    from repro_torch.kernels import flash_attention as fa
+
+    n = 4096
+    x = torch.arange(n, dtype=torch.float32, device=dev)[:, None]
+    src = torch.stack([torch.arange(n) - 1, torch.arange(n)], 1)
+    src[0] = torch.tensor([0, -1])
+    src = src.to(dtype=torch.int32, device=dev)
+    plan_ops = plan_operands(get_plan("ladner_fischer", n), 1).to(dev)
+    local = torch.ones((4, n // 4, 1), device=dev)
+    seeds = torch.ones((4, 1), device=dev)
+    img = lattice_image(64, seed=0, device=dev)
+    ref = lattice_image(64, seed=1, device=dev)
+    c, b, v, ca = _chunk_inputs(3, 64, 16, 16, torch.float32, dev)
+    y_intra = torch.zeros((3, 64, 16), device=dev)
+    s_prev = torch.zeros((3, 16, 16), device=dev)
+    q = torch.randn((2, 128, 64), device=dev)
+    return [
+        ("warp_ncc", lambda: wn.warp_ncc_sums_cuda(img, ref, 0.05, (1.0, 2.0),
+                                                   tile=16), (img,)),
+        ("lookback_scan", lambda: lb.lookback_scan_cuda(torch.add, x, 16),
+         (x,)),
+        ("fused_round", lambda: ts.fused_round_cuda(torch.add, x, src), (x,)),
+        ("fused_plan", lambda: ts.fused_plan_cuda(torch.add, x, plan_ops),
+         (x,)),
+        ("tile_local_scan", lambda: ts.tile_local_scan_cuda(torch.add, x, 16),
+         (x,)),
+        ("tile_apply", lambda: ts.tile_apply_cuda(torch.add, local, seeds),
+         (local,)),
+        ("chunk_local", lambda: cs.chunk_local_cuda(c, b, v, ca), (c,)),
+        ("chunk_apply", lambda: cs.chunk_apply_cuda(c, ca, y_intra, s_prev),
+         (c,)),
+        ("flash_attention", lambda: fa.flash_attention_cuda(q, q, q), (q,)),
+    ]
+
+
+@pytest.mark.parametrize("index", range(9))
+def test_cuda_entries_refuse_autograd(cuda, index):
+    """A kernel has no backward: its CUDA entry raises under grad mode when
+    an operand requires grad, and launches under ``torch.no_grad()``
+    (the reference defines no backward for its Pallas kernels either)."""
+    name, call, operands = _autograd_entries(cuda)[index]
+    reset_launch_counts()
+    for t in operands:
+        t.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="no gradient"):
+        call()
+    assert launch_counts().get(name, 0) == 0
+    with torch.no_grad():
+        out = call()
+    first = out[0] if isinstance(out, tuple) else out
+    assert first.grad_fn is None and bool(torch.isfinite(first).all())
+    assert launch_counts()[name] == 1

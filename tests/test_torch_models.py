@@ -91,9 +91,10 @@ def test_configs_match_reference():
 
 def test_unported_configs_and_kinds_raise():
     """The MoE and frontend configurations, the ``moe`` kind, cross-attention
-    blocks, the encoder and the patch prefix load now; what still raises is
-    an unknown config, training (``loss_fn``, LM training) and the
-    sequence-sharded ``ssd_scan`` (LM multi-device)."""
+    blocks, the encoder, the patch prefix and training (``loss_fn``) work
+    now; what still raises is an unknown config, the sequence-sharded
+    ``ssd_scan`` and training on a mesh (``train(mesh_shape=...)``), the
+    last two waiting for LM multi-device."""
     for name in ("phi3.5-moe-42b-a6.6b", "arctic-480b", "internvl2-1b",
                  "whisper-base"):
         assert configs.get_config(name).name == name
@@ -124,12 +125,13 @@ def test_unported_configs_and_kinds_raise():
     assert xp.shape == (1, 5, cfg.d_model) and n_prefix == 2
     wcfg = configs.get_smoke_config("whisper-base")
     assert "encoder" in lm.init_params(gen, wcfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.loss_fn({}, cfg, {})
     from repro_torch.kernels import ops
     q = torch.zeros(1, 1, 8, 4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ops.ssd_scan(q, q, q, torch.zeros(1, 1, 8), axis_names=("sp",))
+    from repro_torch.launch.train import TrainConfig, train
+    with pytest.raises(NotImplementedError, match="LM multi-device.*ROADMAP"):
+        train(TrainConfig(smoke=True, mesh_shape=(2, 2), device="cpu"))
 
 
 def test_param_tree_matches_reference(shared_params):
