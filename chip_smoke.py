@@ -48,7 +48,7 @@ kernels' launch counts zeroed just before it and read just after:
 * ``collective``: ``core/distributed.py`` on a mesh of 8 positions of the
   card (``core/spmd.py``): ``collective_scan`` of every combine-only
   circuit, the Träff exscan (3 rounds), the 2x4 ("pod", "data")
-  hierarchical scans and the blocked scan (both strategies, 4,096 rows a
+  hierarchical scans and the blocked scan (both strategies, 1,024 rows a
   position, add and the affine pytree op), each bit-equal to exact
   prefixes;
 * ``sharded``: ``engine.scan(backend="sharded")`` on meshes of 4 and 8
@@ -98,7 +98,32 @@ kernels' launch counts zeroed just before it and read just after:
   8 x 256: the MoE block's backward; step seconds, peak, grad norm, aux;
 * ``train_check``: xLSTM-350M at full width and 4 layers in float32, three
   steps on the card against the same steps on the CPU (loss, grad norm,
-  params).
+  params);
+* ``ssd_sharded``: ``ops.ssd_scan(axis_names=...)`` in ``spmd.shard_map``
+  at full width: Zamba2-7B's Mamba2 scan (bf16, B 4, 112 heads, 64 x 64,
+  L 2,048) over 4 positions of the card and over (2, 4) ("pod", "data"),
+  xLSTM-350M's mLSTM scan (d 256) over 4; ``chunk_local`` and
+  ``chunk_apply`` once a position a call, held to the unsharded scan and
+  to the plain versions;
+* ``compressed_psum``: xLSTM-350M's embedding gradient (50,432 x 1,024)
+  summed in int8 over 8 positions, held to the exact float32 sum, every
+  residual to y - dequantize(quantize(y)); int8 against float32 bytes;
+* ``train_mesh xlstm-350m``: a gloo probe of 4 ranks sharing the card,
+  then ``train(mesh_shape=(2, 2))`` at full width and depth, the train
+  phase's first 4 steps with a checkpoint at step 2 and a failure at
+  step 3, then a restore onto ``elastic.plan_rescale(4,
+  model_parallel=1)``'s (4, 1) mesh and step 5; each loss within 2e-2 of
+  the train phase's and each grad norm within 5e-2 of its, each rank's
+  local bytes and peak, step seconds and the collectives staged through
+  host memory.  One card's ranks check values, placements and the
+  restore, not multi-device speed;
+* ``train_mesh_check``: ``train_check``'s model (float32, 4 layers) on a
+  (2, 2) mesh of ranks sharing the card against one device on the card,
+  three steps at lr 0.1 (the params move ~3e-3) with AdamW's eps 1e-8
+  and 1e-3: losses, grad norms and each leaf's first moment at
+  ``train_check``'s bounds, and at eps 1e-3 the params too (at 1e-8 an
+  element whose gradient is below float noise takes Adam's step with
+  either sign; the line counts them).
 
 Output, one line each: ``env``, ``build``, ``kernel warp_ncc``,
 ``kernel lookback_scan``, ``kernel tile_local_scan``, ``kernel tile_apply``,
@@ -118,15 +143,17 @@ chunk_scan's SASS and lookback_scan's longest walk),
 ``scan_engine``, ``serving``, ``series_restore``, ``simulate``,
 ``collective``, ``sharded``, ``lm_serve`` (and one a configuration),
 ``lm_check`` (and ``lm_check xlstm-350m``, ``lm_check whisper-base``),
-``train xlstm-350m``, ``train phi3.5-moe-42b``, ``train_check``, ``kernels``
-(JSON), the card's
+``train xlstm-350m``, ``train phi3.5-moe-42b``, ``train_check``,
+``ssd_sharded``, ``compressed_psum``, ``train_mesh xlstm-350m``,
+``train_mesh_check``, ``kernels`` (JSON), the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``.  Any
 failed phase raises and the script exits non-zero; without a CUDA device it
 exits 2 and prints no result.
 
 ``--cpu-rehearsal`` runs the series, compose, engine, serving, restore,
-simulate, collective, sharded, LM and training phases on the CPU at small
-sizes (the LM and training phases on each configuration's smoke config) with the kernels' plain
+simulate, collective, sharded, LM, training and LM multi-device phases on
+the CPU at small sizes (the LM and training phases on each configuration's
+smoke config, the mesh on gloo CPU ranks) with the kernels' plain
 versions, to rehearse the script's flow without a card; it skips the
 kernel phases and exits 3 without a result line.
 """
@@ -1581,7 +1608,8 @@ def run_simulate(device, n: int = SIM_N) -> dict:
 # card's machine has one card), 8 positions for the collectives and 4 and 8
 # for the sharded backend.  They check values, launches and the protocol;
 # positions on one card are not devices, so no multi-device speed is read.
-COLLECTIVE_ROWS = 4096       # distributed_blocked_scan rows a position
+COLLECTIVE_ROWS = 1024       # distributed_blocked_scan rows a position (at
+                             # 4,096 its Python loops took 75-110 s)
 SHARDED_MESHES = (4, 8)
 
 
@@ -3012,12 +3040,15 @@ def run_train(device, smoke: bool = False) -> dict:
     wall_s = time.perf_counter() - t0
     counts = _no_launches("train")
     peak = torch.cuda.max_memory_allocated(device) if on_card else None
-    by_step, first_run = {}, {}
-    for step, loss in zip(out["loss_steps"], out["losses"]):
+    by_step, first_run, gnorm_by_step = {}, {}, {}
+    for step, loss, gnorm in zip(out["loss_steps"], out["losses"],
+                                 out["grad_norms"]):
         if step in by_step:
             first_run[step] = by_step[step]
         by_step[step] = loss
+        gnorm_by_step[step] = gnorm
     losses = [by_step[i] for i in range(TRAIN_STEPS)]
+    grad_norms = [gnorm_by_step[i] for i in range(TRAIN_STEPS)]
     replay_diff = max((abs(by_step[i] - first_run[i]) for i in first_run),
                       default=None)
     _finite(out["losses"], "train")
@@ -3050,7 +3081,8 @@ def run_train(device, smoke: bool = False) -> dict:
         "batch": TRAIN_BATCH, "seq_len": seq, "lr": TRAIN_LR,
         "steps": out["steps"], "restarts": out["restarts"],
         "save_every": TRAIN_SAVE_EVERY, "fail_at": list(TRAIN_FAIL_AT),
-        "losses": losses, "loss_steps_run": out["loss_steps"],
+        "losses": losses, "grad_norms": grad_norms,
+        "loss_steps_run": out["loss_steps"],
         "losses_run": out["losses"],
         "replay_max_abs_diff": replay_diff,
         "mean_first4": head, "mean_last4": tail,
@@ -3189,6 +3221,468 @@ def run_train_check(device, smoke: bool = False) -> dict:
             "param_max_abs_change": moved}
 
 
+# ---------------------------------------------------------------------------
+# LM multi-device: the sequence-sharded scan, compressed psums, a mesh
+# ---------------------------------------------------------------------------
+
+SSD_SHARDED_L = 2048         # tokens a sequence, split over the positions
+SSD_SHARDED_MESHES = (((4,), ("data",)), ((2, 4), ("pod", "data")))
+PSUM_POSITIONS = 8
+PSUM_TOL = 0.05              # tests/test_substrate.py:94 (rtol and atol)
+MESH_TRAIN_STEPS = 4         # the first steps of the train xlstm-350m phase
+MESH_SAVE_EVERY = 2
+MESH_FAIL_AT = (3,)
+MESH_LOSS_TOL = 2e-2         # a mesh step's loss against the one-device one
+MESH_GNORM_RTOL = 5e-2       # and its grad norm (bf16)
+# train_mesh_check: train_check's model (xLSTM-350M at full width, 4
+# layers, float32) on a (2, 2) mesh against one device, both on the card,
+# at train_check's bounds, at an lr that moves the params well past them.
+MESH_CHECK_LR = 0.1          # the warmup scales it by 0, 1e-2, 2e-2: ~3e-3
+MESH_CHECK_MOVED = 10 * CHECK_PARAM_ATOL
+MESH_CHECK_M_RTOL = 1e-3     # a leaf's first moment against its largest entry
+MESH_CHECK_PARAMS_EPS = 1e-3  # AdamW eps of the run whose params are held
+MESH_CHECK_EPS = (1e-8, MESH_CHECK_PARAMS_EPS)   # AdamW's default first
+
+
+def _ssd_inputs(b, h, l, dk, dv, dtype, device, seed, shift):
+    """q, k ~0.3 N(0, 1), v ~0.5 N(0, 1) in ``dtype``; float32 log_a =
+    -softplus(N + shift) (shift -2: Mamba2's dt of ~0.13 a step)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rn = lambda *shape: torch.randn(shape, generator=gen, device=device)
+    return ((rn(b, h, l, dk) * 0.3).to(dtype), (rn(b, h, l, dk) * 0.3).to(dtype),
+            (rn(b, h, l, dv) * 0.5).to(dtype),
+            -torch.nn.functional.softplus(rn(b, h, l) + shift))
+
+
+def run_ssd_sharded(device, smoke: bool = False) -> dict:
+    """``ops.ssd_scan(axis_names=...)`` inside ``spmd.shard_map`` on meshes
+    of positions of ``device``: Zamba2-7B's Mamba2 scan (bf16, B 4, 112
+    heads, ds = hd = 64, chunk 128, L 2,048) over 4 positions and over a
+    (2, 4) ("pod", "data") mesh, and xLSTM-350M's mLSTM scan (4 heads,
+    dk = dv = 256) over 4.  Each position runs ``chunk_local`` and
+    ``chunk_apply`` once a call (counted).  Gates, each elementwise: bf16,
+    the unsharded scan through the same kernels at the bf16 gate; float32
+    inputs, the sharded scan through the kernels' plain versions at the
+    chunk kernels' float32 tolerance.  The bf16 sharded scan against its
+    plain versions is held normwise (the bf16 gate times the largest
+    |y|) and to at most the unsharded pair's gap on the same inputs:
+    elementwise the bf16 kernels and plain versions, sharded or not,
+    differ by up to two bf16 steps where y_intra, rounded to bf16 between
+    the phases by both, cancels the inter-chunk term."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core import spmd
+    from repro_torch.kernels import launch_counts, ops, reset_launch_counts
+
+    on_card = device.type == "cuda"
+    get = get_smoke_config if smoke else get_config
+    zcfg, xcfg = get("zamba2-7b"), get("xlstm-350m")
+    l = 256 if smoke else SSD_SHARDED_L
+    cases = (
+        ("zamba2-7b mamba2", zcfg.ssm_heads, zcfg.ssm_state,
+         zcfg.d_inner // zcfg.ssm_heads, min(zcfg.ssm_chunk, l // 8), -2.0,
+         SSD_SHARDED_MESHES),
+        ("xlstm-350m mlstm", xcfg.n_heads, xcfg.ssm_head_dim,
+         xcfg.ssm_head_dim, min(xcfg.ssm_chunk, l // 8), 0.0,
+         SSD_SHARDED_MESHES[:1]),
+    )
+    f32_tol = CHUNK_TOL[torch.float32]
+    out, launches = {}, {"chunk_local": 0, "chunk_apply": 0}
+    for seed, (tag, h, dk, dv, chunk, shift, meshes) in enumerate(cases):
+        q, k, v, la = _ssd_inputs(LM_BATCH, h, l, dk, dv, torch.bfloat16,
+                                  device, 40 + seed, shift)
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        whole = ops.ssd_scan(q, k, v, la, chunk=chunk, backend="pallas")
+        whole_plain = ops.ssd_scan(q, k, v, la, chunk=chunk,
+                                   backend="pallas_interpret")
+        whole_gap = float((whole.float() - whole_plain.float()).abs().max())
+        runs = {}
+        for shape, names in meshes:
+            n = math.prod(shape)
+            mesh = spmd.Mesh([device] * n, names, shape)
+            sp = spmd.P(None, None, names)
+
+            def sharded(backend):
+                return spmd.shard_map(
+                    lambda *a: ops.ssd_scan(*a, chunk=chunk, backend=backend,
+                                            axis_names=names,
+                                            axis_sizes=shape),
+                    mesh, sp, sp)
+
+            run, plain = sharded("pallas"), sharded("pallas_interpret")
+            counts = {}
+
+            def counted(*args):
+                _sync(device)
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                y = run(*args)
+                _sync(device)
+                secs = time.perf_counter() - t0
+                for name, c in launch_counts().items():
+                    if name in launches:
+                        counts[name] = counts.get(name, 0) + c
+                return y, secs
+
+            y, first_s = counted(q, k, v, la)
+            y32, _ = counted(q32, k32, v32, la)
+            for name in launches:
+                launches[name] += counts.get(name, 0)
+                if on_card and counts.get(name, 0) != 2 * n:
+                    raise AssertionError(f"ssd_sharded {tag}: {name} launched "
+                                         f"{counts.get(name, 0)} times in two "
+                                         f"calls on {n} positions")
+            y_plain = plain(q, k, v, la)
+            gap = float((y.float() - y_plain.float()).abs().max())
+            scale = float(y_plain.float().abs().max())
+            if gap > BF16_TOL[1] + BF16_TOL[0] * scale or gap > whole_gap:
+                raise AssertionError(f"ssd_sharded {tag}: bf16 kernels and "
+                                     f"plain versions {gap} apart (max |y| "
+                                     f"{scale}; unsharded {whole_gap})")
+            t0 = time.perf_counter()
+            for _ in range(3):
+                run(q, k, v, la)
+            _sync(device)
+            runs["x".join(map(str, shape))] = {
+                "positions": n, "tokens_a_position": l // n,
+                "g_a_position": LM_BATCH * h * (l // n // chunk),
+                "launches_bf16_and_f32": {k_: counts.get(k_, 0)
+                                          for k_ in launches},
+                "max_abs_err_vs_unsharded": _close_to(
+                    y, whole, *BF16_TOL, f"ssd_sharded {tag} vs unsharded"),
+                "f32_max_abs_err_vs_plain": _close_to(
+                    y32, plain(q32, k32, v32, la), *f32_tol,
+                    f"ssd_sharded {tag} float32 vs plain"),
+                "bf16_max_abs_err_vs_plain": gap,
+                "max_abs_y": scale,
+                "first_s": first_s,
+                "ms": (time.perf_counter() - t0) / 3 * 1e3,
+            }
+        out[tag] = {"batch": LM_BATCH, "heads": h, "dk": dk, "dv": dv,
+                    "chunk": chunk, "seq_len": l, "dtype": "bf16",
+                    "unsharded_bf16_kernel_vs_plain_max_abs_err": whole_gap,
+                    "meshes": runs}
+    out["launches"] = launches
+    out["bf16_tol"] = list(BF16_TOL)
+    out["f32_tol"] = list(f32_tol)
+    return out
+
+
+def run_compressed_psum(device, smoke: bool = False) -> dict:
+    """``optim.compress.compressed_psum`` on 8 positions of ``device``:
+    each holds a seeded float32 gradient of xLSTM-350M's largest leaf, the
+    embedding table (50,432 x 1,024); the int8 sum is held to the exact
+    float32 sum (the reference test's rtol / atol 0.05), every position
+    to the same sum, and each residual to y - dequantize(quantize(y))."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core import spmd
+    from repro_torch.optim import compress
+
+    cfg = (get_smoke_config if smoke else get_config)("xlstm-350m")
+    v, d = cfg.padded_vocab, cfg.d_model
+    n = PSUM_POSITIONS
+    gen = torch.Generator(device=device).manual_seed(51)
+    grads = torch.randn((n, v, d), generator=gen, device=device) * 1e-3
+    mesh = spmd.Mesh([device] * n, ("d",))
+
+    def body(xs):
+        s, r = compress.compressed_psum(xs[0], "d")
+        return s[None], r[None]
+
+    run = spmd.shard_map(body, mesh, spmd.P("d"), (spmd.P("d"), spmd.P("d")))
+    _sync(device)
+    t0 = time.perf_counter()
+    s, r = run(grads)
+    _sync(device)
+    secs = time.perf_counter() - t0
+    exact = grads.sum(0)
+    err = _close_to(s[0], exact, PSUM_TOL, PSUM_TOL, "compressed_psum sum")
+    for i in range(1, n):
+        if not torch.equal(s[i], s[0]):
+            raise AssertionError(f"compressed_psum: position {i} holds "
+                                 "another sum")
+    for i in range(n):
+        q, sc = compress.quantize_int8(grads[i])
+        want = grads[i] - compress.dequantize_int8(q, sc, grads[i].shape,
+                                                   torch.float32)
+        if not torch.equal(r[i], want):
+            raise AssertionError(f"compressed_psum: position {i}'s residual "
+                                 "is not y - dequantize(quantize(y))")
+    out = {"positions": n, "leaf": "embed/table", "shape": [v, d],
+           "max_abs_err_vs_exact": err,
+           "max_abs_sum": float(exact.abs().max()),
+           "max_abs_residual": float(r.abs().max()),
+           "int8_wire_bytes": compress.wire_bytes(v * d),
+           "float32_bytes": v * d * 4, "seconds": secs, "tol": PSUM_TOL}
+    del grads, s, r, exact
+    _free_device(device)
+    return out
+
+
+def run_train_mesh(device, one_device: dict, smoke: bool = False) -> dict:
+    """``train(TrainConfig(mesh_shape=(2, 2)))`` on xLSTM-350M at full width
+    and depth (bf16; its smoke config in a rehearsal): 4 ranks in one gloo
+    world sharing ``device``, the train phase's first 4 steps (8 x 256 from
+    the TokenPipeline, its lr) with a checkpoint at step 2 and a failure at
+    step 3 (one restart); then ``elastic.plan_rescale(4,
+    model_parallel=1)``'s (4, 1) mesh restores the step-4 checkpoint with
+    ``shardings=`` and takes step 5.  Every loss within 2e-2 of the same
+    step of the one-device phase (``one_device``'s losses), every grad
+    norm within MESH_GNORM_RTOL of its grad norm.  First, the
+    gloo probe: its own collectives on the device's tensors and DTensor's
+    through the host staging."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import host_staging
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import run_world
+    from repro_torch.launch.train import TrainConfig, train
+    from repro_torch.runtime import elastic
+
+    _free_device(device)
+    t0 = time.perf_counter()
+    probe = run_world(host_staging.probe, 4, device=str(device))
+    probe_s = time.perf_counter() - t0
+    if any(v is not True for k, v in probe[0].items() if k != "staged"):
+        raise AssertionError(f"train_mesh: gloo probe {probe[0]}")
+    seq = REHEARSAL_SEQ if smoke else TRAIN_SEQ
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    kw = dict(arch=TRAIN_ARCH, smoke=smoke, batch=TRAIN_BATCH, seq_len=seq,
+              lr=TRAIN_LR, ckpt_dir=ckpt_dir, log_every=1,
+              device=str(device))
+    plan = elastic.plan_rescale(4, model_parallel=1)
+    # train()'s progress lines go to stderr, the spawned ranks' too (they
+    # inherit file descriptor 1): stdout holds result lines.
+    sys.stdout.flush()
+    saved = os.dup(1)
+    os.dup2(2, 1)
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            t0 = time.perf_counter()
+            mesh = train(TrainConfig(steps=MESH_TRAIN_STEPS,
+                                     save_every=MESH_SAVE_EVERY,
+                                     fail_at=MESH_FAIL_AT, mesh_shape=(2, 2),
+                                     **kw))
+            mesh_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            rescaled = train(TrainConfig(steps=MESH_TRAIN_STEPS + 1,
+                                         save_every=100,
+                                         mesh_shape=plan.mesh_shape, **kw))
+            rescaled_s = time.perf_counter() - t0
+    finally:
+        os.dup2(saved, 1)
+        os.close(saved)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    by_step = dict(zip(mesh["loss_steps"], mesh["losses"]))
+    by_step.update(zip(rescaled["loss_steps"], rescaled["losses"]))
+    gnorm_by_step = dict(zip(mesh["loss_steps"], mesh["grad_norms"]))
+    gnorm_by_step.update(zip(rescaled["loss_steps"], rescaled["grad_norms"]))
+    want = one_device["losses"]
+    want_gnorms = one_device["grad_norms"]
+    n = MESH_TRAIN_STEPS + 1
+    gaps = [abs(by_step[i] - want[i]) for i in range(n)]
+    gnorm_gaps = [abs(gnorm_by_step[i] - want_gnorms[i]) / want_gnorms[i]
+                  for i in range(n)]
+    _finite(list(by_step.values()) + list(gnorm_by_step.values()),
+            "train_mesh")
+    if max(gaps) > MESH_LOSS_TOL:
+        raise AssertionError(f"train_mesh: loss gaps {gaps} to the one-device "
+                             f"steps exceed {MESH_LOSS_TOL}")
+    if max(gnorm_gaps) > MESH_GNORM_RTOL:
+        raise AssertionError(f"train_mesh: grad norms {gnorm_by_step} against "
+                             f"the one-device {want_gnorms[:n]}: relative gaps "
+                             f"{gnorm_gaps} exceed {MESH_GNORM_RTOL}")
+    if mesh["restarts"] != 1 or rescaled["loss_steps"] != [MESH_TRAIN_STEPS]:
+        raise AssertionError(f"train_mesh: restarts {mesh['restarts']}, "
+                             f"rescaled steps {rescaled['loss_steps']}")
+    acfg = _lm_config(smoke, TRAIN_ARCH)
+    # What one MoE layer's experts (w1, w3, w2) hold at full width, and a
+    # rank's block of them on a mesh with "model" of size tp: what each
+    # rank gathers at a layer and the size of the gradient it forms.
+    expert_bytes = {}
+    for arch in ("phi3.5-moe-42b-a6.6b", "arctic-480b"):
+        c = _lm_config(False, arch)
+        whole = (3 * c.n_experts * c.d_model * c.d_ff
+                 * torch.empty((), dtype=c.pdtype).element_size())
+        expert_bytes[arch] = {"experts": c.n_experts, "a_layer": whole, **{
+            f"a_rank_tp{tp}": whole // tp for tp in (2, 16)
+            if c.n_experts % tp == 0}}
+    structs = steps.params_struct(acfg)
+    param_total = sum(t.numel() * t.element_size() for t in _leaves(structs))
+    n_params = sum(t.numel() for t in _leaves(structs))
+    opt_total = n_params * 4 * 3 + 4          # m, v, float32 master, step
+    return {
+        "arch": acfg.name, "layers": acfg.n_layers, "d_model": acfg.d_model,
+        "dtype": acfg.param_dtype, "batch": TRAIN_BATCH, "seq_len": seq,
+        "lr": TRAIN_LR, "mesh": list(mesh["mesh"]),
+        "backend": mesh["backend"], "gloo_probe": probe[0],
+        "gloo_probe_s": probe_s,
+        "loss_steps_2x2": mesh["loss_steps"], "losses_2x2": mesh["losses"],
+        "step_s_2x2": mesh["step_s"], "restarts_2x2": mesh["restarts"],
+        "rescaled_mesh": list(plan.mesh_shape),
+        "loss_steps_4x1": rescaled["loss_steps"],
+        "losses_4x1": rescaled["losses"], "step_s_4x1": rescaled["step_s"],
+        "one_device_losses": want[:n],
+        "loss_gaps": gaps, "loss_tol": MESH_LOSS_TOL,
+        "grad_norms": [gnorm_by_step[i] for i in range(n)],
+        "one_device_grad_norms": want_gnorms[:n],
+        "grad_norm_rel_gaps": gnorm_gaps, "grad_norm_rtol": MESH_GNORM_RTOL,
+        "ranks_2x2": mesh["ranks"], "ranks_4x1": rescaled["ranks"],
+        "one_device_param_bytes": param_total,
+        "one_device_opt_bytes": opt_total,
+        "checkpoint_restore_s_2x2": mesh["checkpoint"]["restore"],
+        "checkpoint_restore_s_4x1": rescaled["checkpoint"]["restore"],
+        "staged_collectives_2x2": mesh["staged_collectives"],
+        "staged_collectives_4x1": rescaled["staged_collectives"],
+        "wall_s_2x2": mesh_s, "wall_s_4x1": rescaled_s,
+        "moe_expert_bytes": expert_bytes,
+    }
+
+
+def _mesh_check_params(cfg, device):
+    """train_check's seeded params, drawn on the CPU, on ``device``."""
+    from repro_torch.interop import params_from_numpy, to_numpy
+    from repro_torch.models import lm
+
+    return params_from_numpy(to_numpy(lm.init_params(
+        torch.Generator().manual_seed(3), cfg)), device=device)
+
+
+def _mesh_check_steps(cfg, device, seq, mesh=None) -> dict:
+    """For each AdamW eps of MESH_CHECK_EPS, CHECK_TRAIN_STEPS steps at
+    MESH_CHECK_LR from the seeded params, on one device or (``mesh``) on
+    DTensors laid out by the rules: eps -> (losses, grad norms, final
+    params, final first moments), the trees as float32 numpy leaves."""
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import mesh_step
+    from repro_torch.optim import adamw
+
+    def full(tree):
+        return [(t.full_tensor() if hasattr(t, "full_tensor") else t)
+                .detach().float().cpu().numpy() for t in _leaves(tree)]
+
+    out = {}
+    for eps in MESH_CHECK_EPS:
+        opt_cfg = adamw.AdamWConfig(lr=MESH_CHECK_LR, eps=eps)
+        params = _mesh_check_params(cfg, device)
+        if mesh is None:
+            step_fn = steps.make_train_step(cfg, opt_cfg)
+        else:
+            params = shd.distribute(
+                params, shd.param_shardings(params, cfg, mesh), mesh)
+            step_fn = mesh_step(cfg, opt_cfg, mesh)
+        opt = adamw.init(params, opt_cfg)
+        losses, gnorms = [], []
+        for i in range(CHECK_TRAIN_STEPS):
+            params, opt, m = step_fn(params, opt, _train_batch(
+                cfg, CHECK_TRAIN_BATCH, seq, i, device))
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+        out[eps] = (losses, gnorms, full(params), full(opt.m))
+        del params, opt
+    return out
+
+
+def _mesh_check_rank(rank, device, cfg, seq):
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((2, 2), ("data", "model"), device=str(device))
+    out = _mesh_check_steps(cfg, device, seq, mesh)
+    return out if rank == 0 else None
+
+
+def run_train_mesh_check(device, smoke: bool = False) -> dict:
+    """train_check's model (xLSTM-350M at full width and
+    CHECK_TRAIN_LAYERS layers, float32; its smoke config in a rehearsal)
+    on a (2, 2) mesh of 4 gloo ranks sharing ``device``, against the same
+    steps on ``device`` alone, from the same seeded params and batches
+    (2 x 128), at MESH_CHECK_LR so the params move past the bound, with
+    AdamW's default eps and with MESH_CHECK_PARAMS_EPS.  Gates, each eps:
+    each step's loss within CHECK_LOSS_RTOL and grad norm within
+    CHECK_GNORM_RTOL (train_check's), each leaf's first moment within
+    MESH_CHECK_M_RTOL of its largest entry, the largest param change above
+    MESH_CHECK_MOVED, no kernel launched; at MESH_CHECK_PARAMS_EPS the
+    params after the third step within CHECK_PARAM_ATOL.  At the default
+    eps 1e-8 Adam's step m / (sqrt(v) + eps) is the sign of a gradient
+    far below float noise, so an element whose gradient the two runs see
+    with opposite signs moves 2 lr apart; the line reports those elements
+    (count, the largest gap, their first moments against their leaf's
+    largest), not gated.  At eps 1e-3 a gradient's noise moves the step
+    by at most the noise / 1e-3."""
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.launch.mesh import run_world
+
+    kw = dict(param_dtype="float32", compute_dtype="float32",
+              cache_dtype="float32")
+    if not smoke:
+        kw["n_layers"] = CHECK_TRAIN_LAYERS
+    cfg = _lm_config(smoke, TRAIN_ARCH, **kw)
+    seq = REHEARSAL_SEQ if smoke else CHECK_TRAIN_SEQ
+    _free_device(device)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    one = _mesh_check_steps(cfg, device, seq)
+    one_s = time.perf_counter() - t0
+    counts = _no_launches("train_mesh_check")
+    t0 = time.perf_counter()
+    mesh = run_world(_mesh_check_rank, 4, cfg, seq, device=str(device))[0]
+    mesh_s = time.perf_counter() - t0
+    start = [t.float().cpu().numpy() for t in
+             _leaves(_mesh_check_params(cfg, torch.device("cpu")))]
+    runs, failed = {}, []
+    for eps in MESH_CHECK_EPS:
+        (ml, mg, mp, mm), (ol, og, op, om) = mesh[eps], one[eps]
+        moved = max(float(np.abs(b - a).max()) for a, b in zip(start, op))
+        m_rel = max(float(np.abs(a - b).max()) / max(float(np.abs(b).max()),
+                                                     1e-30)
+                    for a, b in zip(mm, om))
+        over, worst, m_over = 0, 0.0, 0.0
+        for a, b, ma, mb in zip(mp, op, mm, om):
+            gap = np.abs(a - b)
+            hit = gap > CHECK_PARAM_ATOL
+            over += int(hit.sum())
+            worst = max(worst, float(gap.max()))
+            if hit.any():
+                scale = max(float(np.abs(mb).max()), 1e-30)
+                m_over = max(m_over, float(np.maximum(
+                    np.abs(ma[hit]), np.abs(mb[hit])).max()) / scale)
+        rows = [{"loss": [ml[i], ol[i]], "grad_norm": [mg[i], og[i]]}
+                for i in range(CHECK_TRAIN_STEPS)]
+        for i, r in enumerate(rows):
+            for k, rtol in (("loss", CHECK_LOSS_RTOL),
+                            ("grad_norm", CHECK_GNORM_RTOL)):
+                got, want = r[k]
+                if not abs(got - want) <= rtol * abs(want):
+                    failed.append(f"eps {eps} step {i} {k}: {got} on the "
+                                  f"mesh, {want} on one device")
+        if not moved > MESH_CHECK_MOVED:
+            failed.append(f"eps {eps}: the params moved {moved}")
+        if not m_rel <= MESH_CHECK_M_RTOL:
+            failed.append(f"eps {eps}: first moments {m_rel} apart")
+        if eps == MESH_CHECK_PARAMS_EPS and not worst <= CHECK_PARAM_ATOL:
+            failed.append(f"eps {eps}: params {worst} apart")
+        runs[str(eps)] = {
+            "steps": rows, "param_max_abs_diff": worst,
+            "params_over_atol": over,
+            "their_max_abs_m_over_leaf_max": m_over if over else None,
+            "param_max_abs_change": moved, "m_max_rel_diff": m_rel,
+            "params_gated": eps == MESH_CHECK_PARAMS_EPS}
+    if failed:
+        raise AssertionError(f"train_mesh_check: {failed}; {runs}")
+    _free_device(device)
+    return {"arch": cfg.name, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "dtype": "float32", "mesh": [2, 2],
+            "batch": CHECK_TRAIN_BATCH, "seq_len": seq, "lr": MESH_CHECK_LR,
+            "tol": {"loss_rtol": CHECK_LOSS_RTOL,
+                    "grad_norm_rtol": CHECK_GNORM_RTOL,
+                    "param_atol": CHECK_PARAM_ATOL,
+                    "m_rtol": MESH_CHECK_M_RTOL,
+                    "moved_min": MESH_CHECK_MOVED},
+            "eps": runs, "one_device_s": one_s, "mesh_s": mesh_s,
+            "launches": counts}
+
+
 def _close_pool() -> None:
     """Stop the shared worker pool and wait for its threads, so none is
     alive while PyTorch tears down at exit."""
@@ -3243,9 +3737,14 @@ def main() -> int:
                                                   arch="xlstm-350m"))
         _line("lm_check whisper-base", run_lm_check(dev, smoke=True,
                                                     arch="whisper-base"))
-        _line(f"train {TRAIN_ARCH}", run_train(dev, smoke=True))
+        one = run_train(dev, smoke=True)
+        _line(f"train {TRAIN_ARCH}", one)
         _line("train phi3.5-moe-42b", run_train_moe(dev, smoke=True))
         _line("train_check", run_train_check(dev, smoke=True))
+        _line("ssd_sharded", run_ssd_sharded(dev, smoke=True))
+        _line("compressed_psum", run_compressed_psum(dev, smoke=True))
+        _line(f"train_mesh {TRAIN_ARCH}", run_train_mesh(dev, one, smoke=True))
+        _line("train_mesh_check", run_train_mesh_check(dev, smoke=True))
         _close_pool()
         print("cpu rehearsal: no result", file=sys.stderr)
         return 3
@@ -3347,9 +3846,15 @@ def main() -> int:
                              f"{check_w['flash_noncausal_launches']} "
                              f"non-causal, {check_w['flash_causal_launches']} "
                              "causal")
-    _line(f"train {TRAIN_ARCH}", run_train(dev))
+    one = run_train(dev)
+    _line(f"train {TRAIN_ARCH}", one)
     _line("train phi3.5-moe-42b", run_train_moe(dev))
     _line("train_check", run_train_check(dev))
+    ssd = run_ssd_sharded(dev)
+    _line("ssd_sharded", ssd)
+    _line("compressed_psum", run_compressed_psum(dev))
+    _line(f"train_mesh {TRAIN_ARCH}", run_train_mesh(dev, one))
+    _line("train_mesh_check", run_train_mesh_check(dev))
 
     k["launches"] = series["warp_ncc_launches"]
     k["launches_series_hier"] = hier["warp_ncc_launches"]
@@ -3383,6 +3888,11 @@ def main() -> int:
             kt["name"], 0)
         kt["launches_lm_check_whisper-base"] = check_w["prefill_launches"].get(
             kt["name"], 0)
+        if kt is not kfa:
+            kt["launches_ssd_sharded"] = ssd["launches"][kt["name"]]
+            if not kt["launches_ssd_sharded"] >= 1:
+                raise AssertionError(f"{kt['name']} was never launched on the "
+                                     "ssd_sharded path")
         kt["launches_lm_serve_by_arch"] = {
             arch: run["prefill_launches"].get(kt["name"], 0)
             for arch, run in serves.items()}

@@ -87,6 +87,7 @@ class LintConfig:
         "core/engine/cost.py",
         "core/simulator.py",
         "runtime/scheduler.py",
+        "runtime/elastic.py",
         "runtime/fault.py",
         "runtime/straggler.py",
         "pipeline.py",
@@ -114,6 +115,7 @@ class LintConfig:
         "core/engine/telemetry.py",
         "runtime/scheduler.py",
         "runtime/compile_cache.py",
+        "runtime/elastic.py",
         "runtime/fault.py",
         "runtime/straggler.py",
         "serving/frontend.py",

@@ -14,9 +14,17 @@ a tmp dir and are renamed only after fsync — a crash never corrupts the
 latest checkpoint.  ``save`` copies every tensor to the host before it
 returns (the trainer then updates its state in place, as the reference's
 donated step does), and only the files are written in the background.
-``restore`` builds the tensors on the device it is given, in place of the
-reference's target shardings.  With no device it restores onto the card
-(and raises where there is none), never quietly onto the CPU.
+``restore`` builds the tensors on the device it is given (the card when
+none, never quietly the CPU) and, given ``shardings=`` (a tree of
+``launch.sharding.NamedSharding``), lays each leaf out on its mesh as a
+``DTensor``: the reference's device_put against the new shardings, the
+elastic rescale.
+
+On a mesh the state's leaves are ``DTensor``s and ``save`` is a
+collective: every rank gathers each leaf's full value (``full_tensor``),
+rank 0 alone writes, synchronously, and all ranks meet at a barrier before
+``save`` returns, so a checkpoint stays topology-free full arrays and every
+rank sees it before the next restore.
 
 bfloat16 leaves are stored as the reference stores its ``ml_dtypes``
 bfloat16 arrays: their bits as 2-byte void (``|V2``), so ``np.load`` of
@@ -78,10 +86,19 @@ def _flatten_with_paths(tree) -> List[Tuple[str, Any]]:
     return out
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
 def _to_host(leaf) -> np.ndarray:
-    """A host copy of ``leaf`` that later in-place updates do not reach."""
+    """A host copy of ``leaf`` that later in-place updates do not reach
+    (a DTensor's full value: a collective)."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
+        if _is_dtensor(t):
+            t = t.full_tensor()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).to("cpu", copy=True).numpy().view("V2")
         return t.to("cpu", copy=True).numpy()
@@ -117,8 +134,17 @@ class Checkpointer:
     def save(self, step: int, tree, metadata: Optional[Dict] = None) -> None:
         """Snapshot device values to the host, then write in the background."""
         t0 = time.perf_counter()
+        sharded = any(_is_dtensor(leaf) for _, leaf in _flatten_with_paths(tree))
         host_tree = _map_with_paths(lambda _k, leaf: _to_host(leaf), tree)
         self.timings["save"].append(time.perf_counter() - t0)
+        if sharded:
+            import torch.distributed as dist
+
+            if dist.get_rank() == 0:
+                self.wait()
+                self._write(step, host_tree, metadata or {})
+            dist.barrier()
+            return
         if self._pending is not None:
             self._pending.result()  # one in flight at a time
         if self.async_save:
@@ -202,15 +228,20 @@ class Checkpointer:
 
     def restore(
         self, target_tree, *, step: Optional[int] = None,
-        device: DeviceLike = None,
+        device: DeviceLike = None, shardings=None,
     ):
         """Restore into the structure of ``target_tree``.
 
         Every leaf comes back as a tensor of its prototype's dtype on
-        ``device`` (the card when None)."""
+        ``device`` (the card when None); with ``shardings`` (a tree of the
+        same structure whose leaves have ``mesh`` and ``placements``) as a
+        ``DTensor`` laid out by its sharding.  Every rank reads the full
+        arrays and keeps its own blocks: no communication."""
         dev = resolve_device(device)
         t0 = time.perf_counter()
         by_key, metadata, step = self.restore_raw(step=step)
+        where = ({} if shardings is None else
+                 dict(_flatten_with_paths(shardings)))
 
         def leaf(key, proto):
             if key not in by_key:
@@ -222,7 +253,14 @@ class Checkpointer:
                     f"{key}: checkpoint shape {arr.shape} != target "
                     f"{tuple(proto.shape)}"
                 )
-            return _from_host(arr, proto.dtype, dev)
+            t = _from_host(arr, proto.dtype, dev)
+            if shardings is None:
+                return t
+            from torch.distributed.tensor import distribute_tensor
+
+            shd = where[key]
+            return distribute_tensor(t, shd.mesh, shd.placements,
+                                     src_data_rank=None)
 
         tree = _map_with_paths(leaf, target_tree)
         if dev.type == "cuda":

@@ -10,10 +10,11 @@ the port exactly what those two modules use:
   are allowed: ``Mesh([torch.device("cuda", 0)] * 8, ("x",))`` is a mesh of
   8 positions on one card, ``[cpu] * 8`` the counterpart of XLA's 8 virtual
   host devices.
-* :func:`shard_map` — splits the leading axis of each input over the
-  positions (axis-major, as ``P(("pod", "data"))`` does), runs ``body``
-  once per position, each in a thread of its own (on a CUDA stream of its
-  own when the position is on the card), and concatenates the outputs.
+* :class:`P` — the reference's ``PartitionSpec``: an entry per tensor dim.
+* :func:`shard_map` — splits each input along the dims its spec names
+  (axis-major, as ``P(("pod", "data"))`` does), runs ``body`` once per
+  position, each in a thread of its own (on a CUDA stream of its own when
+  the position is on the card), and concatenates the outputs.
 * Collectives a body calls: :func:`axis_index`, :func:`axis_size`,
   :func:`ppermute` (a position that receives nothing gets zeros, as in
   ``lax.ppermute``), :func:`all_gather` and :func:`psum` (added in position
@@ -44,17 +45,33 @@ from ._tree import tree_flatten, tree_map
 
 
 class P(tuple):
-    """Partition spec of an argument's leading axis: the mesh axes it is
-    split over, major first (``P("x")``, ``P(("pod", "data"))``); ``P()``
-    replicates the argument on every position."""
+    """Partition spec, as ``jax.sharding.PartitionSpec``: one entry per
+    tensor dim, each None (not split), a mesh axis name, or a tuple of
+    names the dim is split over, major first (``P("x")`` splits the
+    leading dim over ``"x"``, ``P(None, None, ("pod", "data"))`` the third
+    over both axes).  Trailing dims without an entry are not split;
+    ``P()`` replicates the argument on every position."""
 
     def __new__(cls, *dims):
-        if len(dims) > 1:
-            raise ValueError("spmd.P splits the leading axis only; pass a "
-                             "tuple of axis names for several mesh axes")
-        axes = dims[0] if dims else ()
-        return super().__new__(cls, (axes,) if isinstance(axes, str)
-                               else tuple(axes))
+        entries = []
+        for d in dims:
+            if d is None or isinstance(d, str):
+                entries.append(d)
+            else:
+                names = tuple(d)
+                if not all(isinstance(n, str) for n in names):
+                    raise TypeError(f"spec entry {d!r}: axis names are str")
+                # One name stands alone, as jax's PartitionSpec keeps it.
+                entries.append(names[0] if len(names) == 1 else names or None)
+        return super().__new__(cls, entries)
+
+    def axes(self, dim: int) -> Tuple[str, ...]:
+        """The mesh axes dim ``dim`` is split over, major first."""
+        e = self[dim] if dim < len(self) else None
+        return () if e is None else (e,) if isinstance(e, str) else e
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
 
 
 def _indexed(d: torch.device) -> torch.device:
@@ -246,11 +263,12 @@ def psum(x: Any, name: str) -> Any:
 # ---------------------------------------------------------------------------
 
 
-def _block(mesh: Mesh, spec: P, coords: Tuple[int, ...]) -> Tuple[int, int]:
-    """(block index, block count) of the position at ``coords`` under
-    ``spec``: the spec's axes, major first."""
+def _block(mesh: Mesh, axes: Tuple[str, ...],
+           coords: Tuple[int, ...]) -> Tuple[int, int]:
+    """(block index, block count) of the position at ``coords`` along
+    ``axes``, major first."""
     b, count = 0, 1
-    for a in spec:
+    for a in axes:
         if a not in mesh.shape:
             raise NameError(f"unbound axis name {a!r}; the mesh has "
                             f"{mesh.axis_names}")
@@ -262,19 +280,22 @@ def _block(mesh: Mesh, spec: P, coords: Tuple[int, ...]) -> Tuple[int, int]:
 
 def _shard(x: Any, mesh: Mesh, spec: P, index: int) -> Any:
     coords = mesh.coords(index)
-    b, count = _block(mesh, spec, coords)
+    blocks = [(d, *_block(mesh, spec.axes(d), coords))
+              for d in range(len(spec))]
     dev = mesh.devices[index]
 
     def piece(t):
         if not isinstance(t, torch.Tensor):
             return t
-        if count > 1:
-            n = t.shape[0]
+        for d, b, count in blocks:
+            if count == 1:
+                continue
+            n = t.shape[d]
             if n % count:
-                raise ValueError(f"shard_map: leading axis {n} does not "
+                raise ValueError(f"shard_map: dim {d} of size {n} does not "
                                  f"split into {count} blocks")
             k = n // count
-            t = t[b * k:(b + 1) * k]
+            t = t.narrow(d, b * k, k)
         return t.to(dev)
 
     return tree_map(piece, x)
@@ -291,21 +312,30 @@ def _specs_for(in_specs, nargs: int) -> List[P]:
 
 
 def _gather(outs: List[Any], mesh: Mesh, spec: P, dest) -> Any:
-    """Concatenate the positions' outputs: one block per index of
-    ``spec``'s axes (the positions at index 0 of every other axis)."""
-    count = math.prod(mesh.shape[a] for a in spec)
-    picked = []
-    for b in range(count):
-        coords = [0] * len(mesh.axis_names)
-        for a in reversed(spec):
-            b, c = divmod(b, mesh.shape[a])
-            coords[mesh.axis_names.index(a)] = c
-        picked.append(outs[mesh.linear(coords)])
-    if count == 1:
-        return tree_map(lambda t: t.to(dest) if isinstance(t, torch.Tensor)
-                        else t, picked[0])
-    return tree_map(lambda *ts: torch.cat([t.to(dest) for t in ts], dim=0),
-                    *picked)
+    """Concatenate the positions' outputs along every dim ``spec`` splits,
+    one block per index of that dim's axes; axes the spec does not name
+    take the positions at index 0."""
+    coords = [0] * len(mesh.axis_names)
+
+    def assemble(dim: int) -> Any:
+        if dim == len(spec):
+            return tree_map(lambda t: t.to(dest)
+                            if isinstance(t, torch.Tensor) else t,
+                            outs[mesh.linear(coords)])
+        axes = spec.axes(dim)
+        if not axes:
+            return assemble(dim + 1)
+        parts = []
+        for b in range(math.prod(mesh.shape[a] for a in axes)):
+            for a in reversed(axes):
+                b, c = divmod(b, mesh.shape[a])
+                coords[mesh.axis_names.index(a)] = c
+            parts.append(assemble(dim + 1))
+        for a in axes:
+            coords[mesh.axis_names.index(a)] = 0
+        return tree_map(lambda *ts: torch.cat(ts, dim=dim), *parts)
+
+    return assemble(0)
 
 
 def shard_map(body: Callable[..., Any], mesh: Mesh, in_specs,
@@ -313,7 +343,8 @@ def shard_map(body: Callable[..., Any], mesh: Mesh, in_specs,
     """``body`` run once per position of ``mesh`` on that position's
     blocks of the arguments (``in_specs``: one :class:`P` for all
     arguments, or a sequence of one per argument); the outputs
-    concatenated under ``out_specs`` onto the first input tensor's
+    concatenated under ``out_specs`` (one :class:`P`, or a sequence of one
+    per element of an output tuple) onto the first input tensor's
     device."""
 
     def run(*args):
@@ -374,6 +405,10 @@ def shard_map(body: Callable[..., Any], mesh: Mesh, in_specs,
             for t in tree_flatten(outs[i])[0]:
                 if isinstance(t, torch.Tensor) and t.is_cuda:
                     t.record_stream(caller[t.device])
-        return _gather(outs, mesh, out_specs, dest)
+        if isinstance(out_specs, P):
+            return _gather(outs, mesh, out_specs, dest)
+        # A sequence of specs: one per element of the body's output tuple.
+        return tuple(_gather([o[i] for o in outs], mesh, s, dest)
+                     for i, s in enumerate(out_specs))
 
     return run

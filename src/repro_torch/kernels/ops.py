@@ -5,7 +5,10 @@ a model layer:
 
   phase 1 (local reduce)  : ``chunk_local``      (kernel)
   phase 2 (global scan)   : inter-chunk scan of (decay, state) summaries —
-                            a prefix circuit (``core.scan.prefix_scan``)
+                            a prefix circuit (``core.scan.prefix_scan``), or
+                            the distributed hierarchical scan when the
+                            sequence is sharded over mesh axes
+                            (``axis_names``, inside ``spmd.shard_map``)
   phase 3 (local apply)   : ``chunk_apply``      (kernel)
 
 Backends:
@@ -24,9 +27,6 @@ The kernel backends have no backward, on either device, as the reference's
 Pallas kernels have none (``jax.grad`` through them raises): under grad
 mode with an operand that requires grad they raise
 (``_cuda.refuse_autograd``).  Training runs on "xla".
-
-Sequence sharding over mesh axes (``axis_names``) waits for LM
-multi-device (``ROADMAP.md`` Queue 1).
 """
 
 from __future__ import annotations
@@ -35,6 +35,11 @@ from typing import Optional, Sequence
 
 import torch
 
+from repro_torch.core.distributed import (
+    _exclusive_over_hierarchy,
+    _nonzero_linear_index,
+    hierarchical_collective_scan,
+)
 from repro_torch.core.scan import prefix_scan
 
 from . import _cuda
@@ -54,14 +59,6 @@ def _state_op(a, b):
     return d1 * d2, d2[..., None, None] * s1 + s2
 
 
-def _no_sequence_sharding(axis_names) -> None:
-    if axis_names:
-        raise NotImplementedError(
-            "sequence-sharded ssd_scan (axis_names) is not ported yet "
-            "(LM multi-device, ROADMAP.md Queue 1)"
-        )
-
-
 def ssd_scan(
     q,
     k,
@@ -79,9 +76,12 @@ def ssd_scan(
     Args:
       q, k: (B, H, L, dk);  v: (B, H, L, dv);  log_a: (B, H, L), <= 0.
       chunk: chunk length (the local segment size of reduce-then-scan).
+      axis_names: when set, L is this position's shard (call inside
+        ``spmd.shard_map``) and the inter-chunk scan continues
+        hierarchically across the given mesh axes, outer first (sequence
+        parallelism for the 500k-token shapes).
     Returns: y (B, H, L, dv) in ``v``'s dtype.
     """
-    _no_sequence_sharding(axis_names)
     if backend in _KERNEL_BACKENDS:
         _cuda.refuse_autograd(f"ssd_scan(backend={backend!r})", q, k, v,
                               log_a)
@@ -129,7 +129,21 @@ def ssd_scan(
         torch.movedim(s_chunk, 2, 0).contiguous(),      # (nc, B, H, dk, dv)
     )
     inc = prefix_scan(_state_op, elems, algorithm=scan_algorithm)
-    s_prev_first = torch.zeros_like(inc[1][0])
+    if axis_names:
+        # Continue the scan across positions: combine the exclusive
+        # inter-position prefix into every local chunk (hierarchical scan,
+        # paper §4.2).
+        last = (inc[0][-1], inc[1][-1])
+        g = hierarchical_collective_scan(_state_op, last, axis_names,
+                                         axis_sizes=axis_sizes)
+        d_p, s_p = _exclusive_over_hierarchy(g, axis_names, axis_sizes)
+        if not _nonzero_linear_index(axis_names):
+            d_p, s_p = torch.ones_like(d_p), torch.zeros_like(s_p)
+        d_in, s_in = inc
+        inc = (d_in * d_p[None], d_in[..., None, None] * s_p[None] + s_in)
+        s_prev_first = s_p                              # seed for chunk 0
+    else:
+        s_prev_first = torch.zeros_like(inc[1][0])
     # Exclusive over chunks: chunk i sees the inclusive state of i-1.
     s_prev = torch.cat([s_prev_first[None], inc[1][:-1]], dim=0)
     s_prev = torch.movedim(s_prev, 0, 2)                # (B, H, nc, dk, dv)

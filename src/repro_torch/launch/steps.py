@@ -7,7 +7,9 @@ the param leaves, as ``jax.value_and_grad`` does, and updates params and
 optimizer state in place (``optim/adamw.py``): the counterpart of the
 reference's donated jit.  The ``*_struct`` helpers give every input of a
 step as meta tensors — shapes and dtypes, nothing allocated, nothing drawn
-— as the reference's ``jax.ShapeDtypeStruct`` stand-ins do.
+— as the reference's ``jax.ShapeDtypeStruct`` stand-ins do.  On a mesh
+the same step runs on ``DTensor`` params and batches
+(``launch/train.py``); its metrics come back as plain tensors.
 """
 
 from __future__ import annotations
@@ -52,8 +54,7 @@ def make_train_step(cfg: ArchConfig,
                 n = t.shape[0] // grad_accum
                 return t[i * n:(i + 1) * n]
 
-            gsum = [torch.zeros(p.shape, dtype=torch.float32,
-                                device=p.device) for p in leaves]
+            gsum = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
             lsum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
             asum = torch.zeros_like(lsum)
             for i in range(grad_accum):
@@ -75,9 +76,16 @@ def make_train_step(cfg: ArchConfig,
             lr_scale,
         )
         metrics = dict(metrics, loss=loss, **opt_metrics)
-        return params, opt_state, metrics
+        return params, opt_state, {k: _full(v) for k, v in metrics.items()}
 
     return train_step
+
+
+def _full(t):
+    """A metric as a plain tensor: a DTensor's global value (on a mesh the
+    loss comes back partial or sharded)."""
+    full = getattr(t, "full_tensor", None)
+    return full() if full is not None else t
 
 
 def make_prefill_step(cfg: ArchConfig):

@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.kernels import ops as kops
 
+from . import shardctx
 from .config import ArchConfig
 from .layers import apply_rope, dense, dense_init, rmsnorm, rmsnorm_init
 
@@ -52,6 +53,9 @@ def _project_qkv(p, cfg: ArchConfig, x, positions, *, rope: bool = True):
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    q = shardctx.constrain_heads(q)
+    k = shardctx.constrain_heads(k)
+    v = shardctx.constrain_heads(v)
     return q, k, v
 
 
@@ -59,7 +63,9 @@ def attention_block(p, cfg: ArchConfig, x, positions, *, causal: bool = True):
     """Full-sequence attention (train / prefill).  x: (B, L, D)."""
     bsz, l, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, positions)
-    o = kops.attention(q, k, v, causal=causal, backend=cfg.attn_backend)
+    o = shardctx.local_heads(
+        lambda q, k, v: kops.attention(q, k, v, causal=causal,
+                                       backend=cfg.attn_backend), q, k, v)
     o = o.transpose(1, 2).reshape(bsz, l, cfg.n_heads * cfg.hd)
     return dense(p["wo"], o.to(x.dtype))
 

@@ -9,11 +9,13 @@ into it in float32 pieces (:func:`normal_param`), so no whole-matrix
 float32 copy lives beside the weights; :func:`params_into` hands that
 storage out from tensors the caller made (``lm.init_params`` fills its
 stacked leaves a superblock at a time) or walks the shapes on the meta
-device.  The reference's ``shardctx`` constraints are no-ops without a mesh
-and are dropped here.  The training loss is ``chunked_cross_entropy``: an
-online logsumexp over the chunk-major head's vocabulary chunks, each chunk
-recomputed in the backward pass, so (B, L, V) logits never exist;
-``softmax_cross_entropy`` over materialized logits is its oracle.
+device.  ``dense`` and the loss's vocabulary chunks call the ``shardctx``
+anchors where the reference does.  The training loss is
+``chunked_cross_entropy``: an online logsumexp over the chunk-major head's
+vocabulary chunks, each chunk recomputed in the backward pass, so (B, L, V)
+logits never exist; ``softmax_cross_entropy`` over materialized logits is
+its oracle.  On a mesh each rank takes the loss of its own batch rows
+against the whole head (``shardctx.local_rows``).
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ import threading
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from . import shardctx
 
 # Values a float32 draw holds at a time (64 MB).
 _PIECE = 1 << 24
@@ -96,7 +100,7 @@ def dense_init(gen, d_in: int, d_out: int, dtype, *, bias: bool = False,
 
 
 def dense(p, x):
-    y = x @ p["w"]
+    y = shardctx.seq_gathered_grad(shardctx.gather_seq(x) @ p["w"])
     if "b" in p:
         y = y + p["b"]
     return y
@@ -131,6 +135,8 @@ def embed_init(gen, vocab: int, d: int, dtype):
 
 
 def embed(p, ids):
+    if hasattr(p["table"], "device_mesh"):
+        return shardctx.local_embed(p["table"], ids)
     return p["table"][ids]
 
 
@@ -179,7 +185,8 @@ def swiglu_init(gen, d: int, f: int, dtype):
 
 
 def swiglu(p, x):
-    return dense(p["w2"], silu(dense(p["w1"], x)) * dense(p["w3"], x))
+    return dense(p["w2"],
+                 silu(dense(p["w1"], x)) * dense(p["w3"], x))
 
 
 def head_init(gen, d: int, vocab: int, n_chunks: int, dtype):
@@ -214,6 +221,7 @@ def _ce_chunk(m, s, gold, x, w, is_here, chunk_pos, softcap: float):
     logits, folded into the running max ``m``, the rescaled sum of
     exponentials ``s`` and the gold logit of the labels that fall in it."""
     lg = (x @ w).float()                                    # (B, L, vc)
+    lg = shardctx.constrain_vocab_chunk(lg)
     if softcap:
         lg = torch.tanh(lg / softcap) * softcap
     m_new = torch.maximum(m, lg.amax(-1))
@@ -233,7 +241,21 @@ def chunked_cross_entropy(p, x, labels, *, softcap: float = 0.0,
     re-runs its matmul (the reference's scan-remat): one extra head matmul
     for O(V/NC) live memory instead of O(V).
     """
-    nc, d, vc = p["w"].shape
+    if hasattr(x, "device_mesh"):
+        # On a mesh each rank takes the loss of its batch rows against the
+        # whole head (gathered): one partial sum of nll and of tokens.
+        nll, count = shardctx.local_rows(
+            lambda w, x, labels: _ce_sums(w, x, labels, softcap, ignore_id),
+            p["w"], x, labels, outs=("sum", "sum"))
+    else:
+        nll, count = _ce_sums(p["w"], x, labels, softcap, ignore_id)
+    return nll / torch.clamp(count, min=1)
+
+
+def _ce_sums(head_w, x, labels, softcap: float, ignore_id: int):
+    """(sum of the non-ignored tokens' nll, their count) over a
+    chunk-major head (NC, D, V/NC)."""
+    nc, d, vc = head_w.shape
     mask = labels != ignore_id
     labels_s = torch.where(mask, labels, 0).long()
     chunk_id = labels_s // vc
@@ -243,7 +265,7 @@ def chunked_cross_entropy(p, x, labels, *, softcap: float = 0.0,
     s = torch.zeros((b, l), dtype=torch.float32, device=x.device)
     gold = torch.zeros((b, l), dtype=torch.float32, device=x.device)
     remat = torch.is_grad_enabled()
-    for ci, w in enumerate(p["w"].unbind(0)):
+    for ci, w in enumerate(head_w.unbind(0)):
         args = (m, s, gold, x, w, chunk_id == ci, chunk_pos, softcap)
         if remat:
             # The chunk draws no random numbers: no RNG state to keep.
@@ -253,4 +275,4 @@ def chunked_cross_entropy(p, x, labels, *, softcap: float = 0.0,
             m, s, gold = _ce_chunk(*args)
     logz = m + torch.log(s)
     nll = (logz - gold) * mask
-    return nll.sum() / torch.clamp(mask.sum(), min=1)
+    return nll.sum(), mask.sum()

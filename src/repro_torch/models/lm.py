@@ -22,8 +22,8 @@ at d_model width.  An encoder-decoder config stacks its encoder's ``attn``
 blocks under ``params["encoder"]``, and every decoder block cross-attends
 the encoder output, which the decode states carry (``enc_out``).
 
-The reference's ``shardctx`` constraints are no-ops without a mesh and are
-dropped.
+The ``shardctx`` anchors sit where the reference's do: the embeddings and
+each superblock's output are constrained tokens-major.
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core._tree import tree_index, tree_map, tree_stack, tree_unbind
 
+from . import shardctx
 from .attention import attention_block
 from .blocks import _norm, block_init, block_residual, block_state_init
 from .config import ArchConfig
@@ -133,6 +134,7 @@ def _embed_inputs(params, cfg: ArchConfig, batch):
     """Token embeddings, with multimodal prefixes prepended (VLM).
     Returns (x, n_prefix)."""
     x = embed(params["embed"], batch["tokens"]).to(cfg.cdtype)
+    x = shardctx.constrain_tokens_major(x)
     n_prefix = 0
     if cfg.frontend == "patch" and "patches" in batch:
         x = torch.cat([batch["patches"].to(cfg.cdtype), x], dim=1)
@@ -172,7 +174,7 @@ def _run_blocks(params, cfg: ArchConfig, x, *, positions, mode, states=None,
             aux = aux + a
             if has_states:
                 new_states[f"b{j}"] = nst
-        return x, aux, new_states
+        return shardctx.constrain_tokens_major(x), aux, new_states
 
     # jax.checkpoint(superblock): the backward pass re-runs each superblock
     # from its input.  The recompute routes a MoE block's top-k exactly as
@@ -192,7 +194,7 @@ def _run_blocks(params, cfg: ArchConfig, x, *, positions, mode, states=None,
             layer_states = states.get(f"sb{i}", {})
         if remat:
             x, aux, new_states = checkpoint(
-                superblock, x, aux, layer_params, layer_states,
+                shardctx.bind(superblock), x, aux, layer_params, layer_states,
                 use_reentrant=False, preserve_rng_state=False)
         else:
             x, aux, new_states = superblock(x, aux, layer_params,

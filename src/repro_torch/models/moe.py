@@ -10,9 +10,11 @@ the capacity factor play the role of the balancing step.
 The dispatch is the reference's dense one: one-hot dispatch and combine
 tensors and einsums over every expert, so a step reads every expert's
 weights whichever tokens it routes.  The reference computes these products
-outside any Pallas kernel, and so do these ``torch.einsum`` calls.  The
-expert-parallel sharding of the reference's expert dim needs a mesh and is
-dropped here, as its other ``shardctx`` constraints are.
+outside any Pallas kernel, and so do these ``torch.einsum`` calls.  On a
+mesh the expert dim of w1/w3/w2 is stored sharded over "model" by the
+sharding rules (``launch/sharding.py``), as the reference's is, and stays
+so: each rank routes its own batch rows through its block of experts, and
+the blocks' shares of y are summed over "model" (``shardctx.local_experts``).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from . import shardctx
 from .config import ArchConfig
 from .layers import dense_init, normal_param, silu
 
@@ -47,11 +50,26 @@ def moe_apply(p, cfg: ArchConfig, x) -> Tuple[torch.Tensor, torch.Tensor]:
     the gates rounded to it; the Switch aux loss e * sum_e f_e * p_e.
     """
     bsz, l, d = x.shape
-    e, k = cfg.n_experts, cfg.top_k
     t = bsz * l
     g_size = min(cfg.moe_group_size, t)
     assert t % g_size == 0, f"tokens {t} % group {g_size}"
-    g = t // g_size
+    if hasattr(x, "device_mesh"):
+        # On a mesh each rank routes its batch rows (whole groups) through
+        # its block of experts; the aux loss is the mean over groups.
+        return shardctx.local_experts(
+            lambda p, x, lo: _moe_groups(p, cfg, x, g_size, lo), p, x,
+            rows_ok=lambda rows: (rows * l) % g_size == 0)
+    return _moe_groups(p, cfg, x, g_size)
+
+
+def _moe_groups(p, cfg: ArchConfig, x, g_size: int, lo: int = 0):
+    """:func:`moe_apply` on ``x``'s tokens in groups of ``g_size``, through
+    the experts ``p`` holds: ``lo:lo + len(p["w1"])`` of the router's
+    (every expert by default; on a mesh a rank's block, whose share of y
+    the caller sums)."""
+    bsz, l, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    g = bsz * l // g_size
     xg = x.reshape(g, g_size, d)
     dt = xg.dtype
 
@@ -84,6 +102,9 @@ def moe_apply(p, cfg: ArchConfig, x) -> Tuple[torch.Tensor, torch.Tensor]:
     comb = torch.einsum("gske,gskc->gsec", gate_vals.to(dt)[..., None] * ohc,
                         pos_oh)
 
+    hi = lo + p["w1"].shape[0]
+    if (lo, hi) != (0, e):
+        disp, comb = disp[:, :, lo:hi], comb[:, :, lo:hi]
     xe = torch.einsum("gsec,gsd->egcd", disp, xg)         # (e, g, c, d)
     h = torch.einsum("egcd,edf->egcf", xe, p["w1"])
     u = torch.einsum("egcd,edf->egcf", xe, p["w3"])

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from repro_torch.core.scan import prefix_scan
 from repro_torch.kernels import ops as kops
 
+from . import shardctx
 from .config import ArchConfig
 from .layers import (
     const_param,
@@ -98,6 +99,11 @@ def _mamba2_inner(p, cfg: ArchConfig, u, conv_state=None, ssm_state=None,
     # flat reshape does.
     k = bmat[:, None].expand(bsz, nh, l, ds)
     q = cmat[:, None].expand(bsz, nh, l, ds)
+    # Mamba2 heads (112 for zamba2) shard over TP — without the anchor these
+    # (B, nh, L, ds/hd) activations replicate over the model axis.
+    v_in = shardctx.constrain_heads(v_in)
+    k = shardctx.constrain_heads(k)
+    q = shardctx.constrain_heads(q)
     la = log_a.transpose(1, 2)                                      # (B, nh, L)
 
     if l == 1 and ssm_state is not None:
@@ -106,13 +112,14 @@ def _mamba2_inner(p, cfg: ArchConfig, u, conv_state=None, ssm_state=None,
         )
         y = y[:, :, None]
     else:
-        y = kops.ssd_scan(
-            q, k, v_in, la,
-            chunk=min(cfg.ssm_chunk, l),
-            backend=cfg.ssm_backend,
-            scan_algorithm=cfg.scan_algorithm,
-            axis_names=seq_axes,
-        )
+        y = shardctx.local_heads(
+            lambda q, k, v, la: kops.ssd_scan(
+                q, k, v, la,
+                chunk=min(cfg.ssm_chunk, l),
+                backend=cfg.ssm_backend,
+                scan_algorithm=cfg.scan_algorithm,
+                axis_names=seq_axes,
+            ), q, k, v_in, la)
         new_ssm = None  # full-state return handled by the prefill wrapper
     y = y + p["d_skip"][None, :, None, None] * v.float()
     y = y.transpose(1, 2).reshape(bsz, l, di).to(u.dtype)
@@ -201,7 +208,7 @@ def _mlstm_qkv(p, cfg: ArchConfig, x):
     gates = dense(p["w_gates"], x).float()
     ig, fg = torch.chunk(gates, 2, dim=-1)                  # (B, L, nh)
     i = torch.sigmoid(ig).transpose(1, 2)                   # (B, nh, L)
-    log_f = F.logsigmoid(fg).transpose(1, 2)
+    log_f = shardctx.pointwise(F.logsigmoid, fg).transpose(1, 2)
     return q, k, v, i, log_f
 
 
@@ -234,16 +241,20 @@ def mlstm_apply(p, cfg: ArchConfig, x, *, seq_axes=None):
     nh, hd = cfg.n_heads, cfg.ssm_head_dim
     q, k, v, i, log_f = _mlstm_qkv(p, cfg, x)
     k_in = k * i[..., None].to(k.dtype)
-    num = kops.ssd_scan(
-        q, k_in, v, log_f,
-        chunk=min(cfg.ssm_chunk, l),
-        backend=cfg.ssm_backend,
-        scan_algorithm=cfg.scan_algorithm,
-        axis_names=seq_axes,
-    )
-    n = _mlstm_normalizer(log_f, k_in.float())
-    denom = torch.abs(torch.einsum("bhld,bhld->bhl", q.float(), n))
-    y = num / torch.clamp(denom, min=1.0)[..., None].to(num.dtype)
+
+    def heads(q, k_in, v, log_f):
+        num = kops.ssd_scan(
+            q, k_in, v, log_f,
+            chunk=min(cfg.ssm_chunk, l),
+            backend=cfg.ssm_backend,
+            scan_algorithm=cfg.scan_algorithm,
+            axis_names=seq_axes,
+        )
+        n = _mlstm_normalizer(log_f, k_in.float())
+        denom = torch.abs(torch.einsum("bhld,bhld->bhl", q.float(), n))
+        return num / torch.clamp(denom, min=1.0)[..., None].to(num.dtype)
+
+    y = shardctx.local_heads(heads, q, k_in, v, log_f)
     y = y.transpose(1, 2).reshape(bsz, l, nh * hd)
     return _mlstm_out(p, cfg, x, y)
 
@@ -304,10 +315,10 @@ def slstm_init(gen, cfg: ArchConfig):
 
 def _slstm_cell(p, cfg: ArchConfig, wx_t, state, r=None):
     """One step: wx_t (B, 4D) precomputed input part; state dict of
-    (B, nh, hd).  ``r``: ``p["r"]`` in float32, when the caller has it."""
-    nh = cfg.n_heads
-    hd = cfg.d_model // nh
+    (B, nh, hd).  ``r``: ``p["r"]`` in float32, when the caller has it
+    (on a mesh the caller's local heads: nh and hd are read from it)."""
     r = p["r"].float() if r is None else r
+    nh, hd = r.shape[0], r.shape[1]
     h, c, n = state["h"], state["c"], state["n"]
     rec = torch.einsum("bhd,hdk->bhk", h, r)                  # (B, nh, 4hd)
     pre = wx_t.reshape(-1, nh, 4 * hd).float() + rec
@@ -330,17 +341,68 @@ def slstm_state_init(cfg: ArchConfig, batch: int, device=None):
     return {"h": zero(), "c": zero(), "n": zero()}
 
 
-def slstm_apply(p, cfg: ArchConfig, x, state=None, return_state: bool = False):
-    bsz, l, d = x.shape
-    wx = dense(p["w_in"], x)                                    # (B, L, 4D)
-    if state is None:
-        state = slstm_state_init(cfg, bsz, device=x.device)
-    r = p["r"].float()
+def _slstm_loop(p, cfg: ArchConfig, wx, state, r):
+    """The recurrence over wx's L steps: (h for every step (B, L, nh, hd),
+    final state)."""
     hs = []
-    for t in range(l):
+    for t in range(wx.shape[1]):
         state = _slstm_cell(p, cfg, wx[:, t], state, r)
         hs.append(state["h"])
-    y = torch.stack(hs, dim=1).reshape(bsz, l, d).to(x.dtype)
+    return torch.stack(hs, dim=1), state
+
+
+def _slstm_local(p, cfg: ArchConfig, wx):
+    """The recurrence of a DTensor ``wx`` on local shards: batch over its
+    data axes and heads over "model" where they divide, inside one
+    ``to_local``/``from_local`` pair (~500 steps a layer would otherwise
+    pay DTensor's dispatch on each of their launches).  The heads' h come
+    back as a DTensor (B, L, D) laid out alike.  ``r``'s gradient on a
+    rank covers its batch rows only: partial over the data axes the rows
+    are split over."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = wx.device_mesh
+    names = mesh.mesh_dim_names
+    bsz, l, _ = wx.shape
+    nh = cfg.n_heads
+    wx_pl, r_pl, r_grad_pl = [], [], []
+    for i, name in enumerate(names):
+        n = mesh.size(i)
+        if name == "model" and nh % n == 0:
+            wx_pl.append(Shard(2))
+            r_pl.append(Shard(0))
+            r_grad_pl.append(Shard(0))
+        elif name != "model" and bsz % n == 0:
+            wx_pl.append(Shard(0))
+            r_pl.append(Replicate())
+            r_grad_pl.append(Partial())
+        else:
+            wx_pl.append(Replicate())
+            r_pl.append(Replicate())
+            r_grad_pl.append(Replicate())
+    wx_l = wx.redistribute(mesh, wx_pl).to_local()
+    r_l = p["r"].float().redistribute(mesh, r_pl).to_local(
+        grad_placements=r_grad_pl)
+    # Shard(0) on several data axes nests; the local batch is what is left.
+    state = slstm_state_init(cfg, wx_l.shape[0], device=wx_l.device)
+    state = {k: v[:, :r_l.shape[0]] for k, v in state.items()}
+    h, _ = _slstm_loop(p, cfg, wx_l, state, r_l)
+    h = h.reshape(wx_l.shape[0], l, -1)
+    return DTensor.from_local(h, mesh, wx_pl, run_check=False,
+                              shape=(bsz, l, cfg.d_model),
+                              stride=(l * cfg.d_model, cfg.d_model, 1))
+
+
+def slstm_apply(p, cfg: ArchConfig, x, state=None, return_state: bool = False):
+    bsz, l, d = x.shape
+    wx = dense(p["w_in"], x)                              # (B, L, 4D)
+    if state is None and hasattr(wx, "device_mesh"):
+        y = _slstm_local(p, cfg, wx).to(x.dtype)
+    else:
+        if state is None:
+            state = slstm_state_init(cfg, bsz, device=x.device)
+        h, state = _slstm_loop(p, cfg, wx, state, p["r"].float())
+        y = h.reshape(bsz, l, d).to(x.dtype)
     y = dense(p["out_proj"], rmsnorm(p["out_norm"], y, cfg.norm_eps))
     if return_state:
         return y, state

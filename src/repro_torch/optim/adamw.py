@@ -12,6 +12,13 @@ port's counterpart of the reference's ``jax.jit(..., donate_argnums=(0,
 1))``, so the optimizer state exists once, not twice, at the peak of a
 step.  A caller who keeps the old state must clone it first.  Large leaves
 are updated in pieces, so the temporaries stay small.
+
+On a mesh the params and the state are ``DTensor``s laid out alike
+(``launch/sharding.py``): each gradient is first redistributed to its
+param's placements (a reduce-scatter of a partial sum, as GSPMD inserts),
+then every rank updates its local shards in place.  The clip's global norm
+is over the whole gradient: each rank's local sum of squares, divided by
+the number of ranks that hold the same shard, summed over the mesh.
 """
 
 from __future__ import annotations
@@ -46,6 +53,17 @@ class OptState(NamedTuple):
     master: Any  # fp32 params, or () when keep_master=False
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def _local(x):
+    """A DTensor's local shard (shares its storage), else ``x``."""
+    return x.to_local() if _is_dtensor(x) else x
+
+
 def _device_of(params) -> torch.device:
     leaves, _ = tree_flatten(params)
     return leaves[0].device if leaves else torch.device("cpu")
@@ -55,16 +73,26 @@ def init(params, cfg: AdamWConfig = AdamWConfig()) -> OptState:
     """Zero moments and (``keep_master``) a float32 copy of the params, on
     the params' device (the meta device gives shapes only)."""
     def zeros(p):
+        if _is_dtensor(p):
+            return torch.zeros_like(p, dtype=torch.float32)
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
     master = (
         tree_map(lambda p: p.detach().to(torch.float32, copy=True), params)
         if cfg.keep_master else ()
     )
-    return OptState(
-        torch.zeros((), dtype=torch.int32, device=_device_of(params)),
-        tree_map(zeros, params), tree_map(zeros, params), master,
-    )
+    step = torch.zeros((), dtype=torch.int32, device=_device_of(params))
+    leaves = tree_flatten(params)[0]
+    if leaves and _is_dtensor(leaves[0]):
+        # On a mesh the step is replicated, as the reference's sharding
+        # rules give it.
+        from torch.distributed.tensor import Replicate, distribute_tensor
+
+        mesh = leaves[0].device_mesh
+        step = distribute_tensor(step, mesh, [Replicate()] * mesh.ndim,
+                                 src_data_rank=None)
+    return OptState(step, tree_map(zeros, params), tree_map(zeros, params),
+                    master)
 
 
 def _pieces(t: torch.Tensor, written: bool = False):
@@ -79,13 +107,45 @@ def _pieces(t: torch.Tensor, written: bool = False):
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's float32 squares."""
+    """sqrt of the sum of every leaf's float32 squares.  DTensor leaves
+    count each element once: one all-reduce over their mesh of the local
+    sums, each divided by its shard's replica count."""
     leaves, _ = tree_flatten(tree)
     total = torch.zeros((), dtype=torch.float32, device=_device_of(tree))
+    mesh = None
     for x in leaves:
-        for piece in _pieces(x):
-            total = total + torch.sum(torch.square(piece.float()))
+        part = torch.zeros_like(total)
+        for piece in _pieces(_local(x)):
+            part = part + torch.sum(torch.square(piece.float()))
+        if _is_dtensor(x):
+            mesh = x.device_mesh
+            part = part / _replicas(x)
+        total = total + part
+    if mesh is not None:
+        from torch.distributed.tensor import DTensor, Partial
+
+        total = DTensor.from_local(total, mesh, [Partial()] * mesh.ndim,
+                                   run_check=False).full_tensor()
     return torch.sqrt(total)
+
+
+def _replicas(x) -> int:
+    """Ranks of ``x``'s mesh that hold each of its shards."""
+    from torch.distributed.tensor import Replicate
+
+    n = 1
+    for d, pl in enumerate(x.placements):
+        if isinstance(pl, Replicate):
+            n *= x.device_mesh.size(d)
+    return n
+
+
+def _aligned(g, p):
+    """``g`` laid out as ``p`` (a DTensor gradient may come back partial
+    or otherwise placed)."""
+    if _is_dtensor(p) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def _as_f32(x, device) -> torch.Tensor:
@@ -99,9 +159,11 @@ def update(
 ) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
     """One AdamW step, in place.  Returns (params, state, metrics): the
     same trees, updated."""
-    dev = state.step.device
-    state.step.add_(1)
-    step = state.step.float()
+    count = _local(state.step)
+    dev = count.device
+    count.add_(1)
+    step = count.float()
+    grads = tree_map(_aligned, grads, params)
     gnorm = global_norm(grads)
     one = _as_f32(1.0, dev)
     scale = torch.minimum(one, cfg.clip_norm / (gnorm + 1e-9))
@@ -115,6 +177,7 @@ def update(
     flat_p, _ = tree_flatten(params)
     flat_ref = tree_flatten(state.master)[0] if cfg.keep_master else flat_p
     for g, m, v, ref, p in zip(flat_g, flat_m, flat_v, flat_ref, flat_p):
+        g, m, v, ref, p = map(_local, (g, m, v, ref, p))
         pieces = zip(_pieces(g), _pieces(m, True), _pieces(v, True),
                      _pieces(ref, True))
         for gi, mi, vi, ri in pieces:
@@ -137,7 +200,7 @@ def update(
 
 def cosine_schedule(step, *, warmup: int, total: int, floor: float = 0.1):
     """Warmup-then-cosine multiplier in [floor, 1], as a float32 tensor."""
-    step = torch.as_tensor(step).to(torch.float32)
+    step = torch.as_tensor(_local(step)).to(torch.float32)
     warm = torch.clamp(step / max(warmup, 1), max=1.0)
     t = torch.clamp((step - warmup) / max(total - warmup, 1), 0.0, 1.0)
     cos = floor + (1 - floor) * 0.5 * (1 + torch.cos(math.pi * t))

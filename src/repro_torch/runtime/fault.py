@@ -1,8 +1,8 @@
 """Fault-tolerant training loop: heartbeats, checkpoint/restart, injection.
 
 Port of ``repro/runtime/fault.py`` over the port's checkpointer: a restore
-builds the state on ``state_device`` where the reference passes
-``state_shardings``.
+builds the state on ``state_device`` and, on a mesh, lays it out by
+``state_shardings``, as the reference's does.
 
 The loop owns training: it checkpoints on a cadence, watches a
 heartbeat (hosts report liveness; in single-host runs a watchdog thread
@@ -71,6 +71,7 @@ def run_with_restarts(
     checkpointer: Checkpointer,
     save_every: int = 50,
     state_device=None,
+    state_shardings=None,
     injector: Optional[FailureInjector] = None,
     max_restarts: int = 10,
     on_step: Optional[Callable[[int, Any], None]] = None,
@@ -79,7 +80,10 @@ def run_with_restarts(
 
     ``make_state()`` builds fresh (params, opt_state, ...) trees of tensors;
     ``train_step(state, step)`` advances one step and returns the new state.
-    On any exception the latest checkpoint is restored and training resumes.
+    On any exception the latest checkpoint is restored and training resumes,
+    onto ``state_device``, laid out by ``state_shardings`` when given (a
+    tree of ``launch.sharding.NamedSharding``: the restore of a run on a
+    mesh).
     """
     run = RunState()
     state = None
@@ -89,7 +93,7 @@ def run_with_restarts(
                 proto = make_state()
                 if checkpointer.latest_step() is not None:
                     state, meta, ck_step = checkpointer.restore(
-                        proto, device=state_device
+                        proto, device=state_device, shardings=state_shardings
                     )
                     run.step = ck_step
                 else:

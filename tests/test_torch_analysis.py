@@ -444,6 +444,9 @@ def test_load_config_gives_port_root():
     assert cfg.thread_construction_allowed == ("runtime/scheduler.py",)
     assert "core/engine/sharded.py" in cfg.hot_path_modules
     assert "core/engine/sharded.py" in cfg.lockset_modules
+    # As the reference's (src/repro/analysis/lint.py:81, :104).
+    assert "runtime/elastic.py" in cfg.hot_path_modules
+    assert "runtime/elastic.py" in cfg.lockset_modules
     assert isinstance(cfg, LintConfig)
     import os
 

@@ -187,7 +187,9 @@ def test_ssd_scan_rejects_ragged_length_and_sharding():
     q, k, v, la = _t(*_inputs(1, 1, 384, 16, 16, seed=5))
     with pytest.raises(AssertionError):
         ops.ssd_scan(q, k, v, la, chunk=256, backend="pallas")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # The sequence-sharded scan is a collective: outside a shard_map body
+    # it has no mesh to continue over.
+    with pytest.raises(ValueError, match="shard_map"):
         ops.ssd_scan(q, k, v, la, chunk=128, axis_names=("data",))
     with pytest.raises(ValueError):
         ops.ssd_scan(q, k, v, la, chunk=128, backend="mosaic")

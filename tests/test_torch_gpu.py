@@ -1566,3 +1566,172 @@ def test_cuda_entries_refuse_autograd(cuda, index):
     first = out[0] if isinstance(out, tuple) else out
     assert first.grad_fn is None and bool(torch.isfinite(first).all())
     assert launch_counts()[name] == 1
+
+
+# ---------------------------------------------------------------------------
+# LM multi-device on one card: positions and ranks that share cuda:0
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape,names", [((4,), ("data",)),
+                                         ((2, 4), ("pod", "data"))])
+@pytest.mark.parametrize("d,dtype", [(64, torch.bfloat16),
+                                     (256, torch.bfloat16),
+                                     (64, torch.float32)])
+def test_sequence_sharded_ssd_scan_on_card_positions(cuda, shape, names, d,
+                                                     dtype):
+    """ssd_scan with L sharded over positions of cuda:0: chunk_local and
+    chunk_apply launch once a position, and the result is the unsharded
+    scan through the kernels (elementwise: the bf16 gate, float32 at the
+    chunk kernels' tolerance) and the sharded scan through their plain
+    versions (float32 elementwise; bf16 normwise, the gate times the
+    largest |y|: where y_intra, rounded to bf16 between the phases, cancels
+    the inter-chunk term, kernels and plain versions differ by up to two
+    bf16 steps of y, sharded or not)."""
+    from repro_torch.core import spmd
+    from repro_torch.kernels import ops
+
+    n = int(np.prod(shape))
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    rn = lambda *s: torch.randn(s, generator=gen, device=cuda)
+    q, k, v = ((rn(2, 4, 64 * n, d) * 0.3).to(dtype) for _ in range(3))
+    la = -torch.nn.functional.softplus(rn(2, 4, 64 * n) - 2.0)
+    mesh = spmd.Mesh([cuda] * n, names, shape)
+    sp = spmd.P(None, None, names)
+
+    def run(backend):
+        return spmd.shard_map(
+            lambda *a: ops.ssd_scan(*a, chunk=32, backend=backend,
+                                    axis_names=names, axis_sizes=shape),
+            mesh, sp, sp)(q, k, v, la)
+
+    whole = ops.ssd_scan(q, k, v, la, chunk=32, backend="pallas")
+    reset_launch_counts()
+    y = run("pallas")
+    torch.cuda.synchronize()
+    counts = {kk: c for kk, c in launch_counts().items() if c}
+    assert counts == {"chunk_local": n, "chunk_apply": n}
+    rtol, atol = _BF16_TOL if dtype == torch.bfloat16 else (1e-4, 1e-5)
+    torch.testing.assert_close(y.float(), whole.float(), rtol=rtol,
+                               atol=atol)
+    plain = run("pallas_interpret").float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, plain, rtol=rtol, atol=atol)
+    else:
+        gap = float((y.float() - plain).abs().max())
+        assert gap <= atol + rtol * float(plain.abs().max())
+
+
+def test_gloo_collectives_on_card_tensors_and_staged_dtensor(cuda):
+    """Four gloo ranks sharing cuda:0: gloo's own all-gather,
+    reduce-scatter, all-reduce and all-to-all on card tensors, and
+    DTensor's collectives through the host staging."""
+    from repro_torch.launch import host_staging
+    from repro_torch.launch.mesh import run_world
+
+    for got in run_world(host_staging.probe, 4, device="cuda"):
+        assert got == {"all_gather_into_tensor": True,
+                       "reduce_scatter_tensor": True, "all_reduce": True,
+                       "all_to_all_single": True,
+                       "dtensor_collectives": True, "staged": True}
+
+
+def test_train_on_a_card_mesh_matches_one_device(cuda, tmp_path):
+    """qwen3-32b's smoke config, three float32 steps on a (2, 2) mesh of
+    gloo ranks sharing cuda:0 against the same steps on the card alone."""
+    from repro_torch.launch.train import TrainConfig, train
+
+    kw = dict(arch="qwen3-32b", smoke=True, steps=3, batch=4, seq_len=32,
+              save_every=100, device="cuda")
+    one = train(TrainConfig(ckpt_dir=str(tmp_path / "one"), **kw))
+    mesh = train(TrainConfig(ckpt_dir=str(tmp_path / "mesh"),
+                             mesh_shape=(2, 2), **kw))
+    assert mesh["backend"] == "gloo" and mesh["staged_collectives"]
+    np.testing.assert_allclose(mesh["losses"], one["losses"], rtol=1e-5)
+
+
+_MESH_LR = 0.1       # the warmup scales it by 0, 1e-2, 2e-2: the params
+                     # move ~3e-3, well past the params bound
+_MESH_EPS = 1e-3     # AdamW's eps: at its default 1e-8 a gradient below
+                     # float noise takes a step of either sign, 2 lr apart
+                     # (chip_smoke.py's train_mesh_check counts them)
+_MESH_STEPS, _MESH_BATCH, _MESH_SEQ = 3, 4, 32
+
+
+def _card_mesh_steps(arch, device, mesh=None):
+    """Three float32 steps of ``arch``'s smoke config at _MESH_LR and
+    _MESH_EPS from seeded params and batches, on ``device`` alone or on
+    ``mesh``:
+    (losses, grad norms, params, first moments, initial params), the trees
+    as numpy leaves."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core._tree import tree_flatten
+    from repro_torch.interop import params_from_numpy, to_numpy
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import mesh_step
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+
+    cfg = get_smoke_config(arch)
+    opt_cfg = adamw.AdamWConfig(lr=_MESH_LR, eps=_MESH_EPS)
+    start = to_numpy(lm.init_params(torch.Generator().manual_seed(0), cfg))
+    params = params_from_numpy(start, device=device)
+    if mesh is None:
+        step_fn = steps.make_train_step(cfg, opt_cfg)
+    else:
+        params = shd.distribute(params, shd.param_shardings(params, cfg, mesh),
+                                mesh)
+        step_fn = mesh_step(cfg, opt_cfg, mesh)
+    opt = adamw.init(params, opt_cfg)
+    rng = np.random.default_rng(7)
+    losses, gnorms = [], []
+    for _ in range(_MESH_STEPS):
+        batch = {k: torch.as_tensor(rng.integers(
+            0, cfg.vocab_size, (_MESH_BATCH, _MESH_SEQ)), device=device)
+            for k in ("tokens", "labels")}
+        params, opt, m = step_fn(params, opt, batch)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+
+    def full(tree):
+        return [(t.full_tensor() if hasattr(t, "full_tensor") else t)
+                .detach().float().cpu().numpy()
+                for t in tree_flatten(tree)[0]]
+
+    return (losses, gnorms, full(params), full(opt.m),
+            [np.asarray(t, np.float32) for t in tree_flatten(start)[0]])
+
+
+def _card_mesh_rank(rank, device, arch):
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((2, 2), ("data", "model"), device=str(device))
+    out = _card_mesh_steps(arch, device, mesh)
+    return out if rank == 0 else None
+
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "phi3.5-moe-42b-a6.6b"])
+def test_float32_steps_on_a_card_mesh_match_one_device(cuda, arch):
+    """Three float32 steps of ``arch``'s smoke config on a (2, 2) mesh of
+    gloo ranks sharing cuda:0 (the sLSTM loop and the expert blocks on
+    local shards, DTensor's collectives staged through host memory)
+    against the same steps on the card alone, at the card's train check
+    bounds (loss rtol 1e-4, grad norm 1e-3, params atol 1e-4; first
+    moments within 1e-3 of each leaf's largest), at an lr that moves the
+    params ten times the params bound and AdamW's eps at 1e-3."""
+    from repro_torch.launch.mesh import run_world
+
+    ml, mg, mp, mm, _ = run_world(_card_mesh_rank, 4, arch,
+                                  device="cuda")[0]
+    ol, og, op, om, start = _card_mesh_steps(arch, cuda)
+    moved = max(float(np.abs(b - a).max()) for a, b in zip(start, op))
+    assert moved > 1e-3, moved
+    np.testing.assert_allclose(ml, ol, rtol=1e-4)
+    np.testing.assert_allclose(mg, og, rtol=1e-3)
+    assert len(mp) == len(op) == len(mm) == len(om)
+    for a, b in zip(mp, op):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-4)
+    for a, b in zip(mm, om):
+        np.testing.assert_allclose(a, b, rtol=0,
+                                   atol=1e-3 * float(np.abs(b).max()))

@@ -91,10 +91,11 @@ def test_configs_match_reference():
 
 def test_unported_configs_and_kinds_raise():
     """The MoE and frontend configurations, the ``moe`` kind, cross-attention
-    blocks, the encoder, the patch prefix and training (``loss_fn``) work
-    now; what still raises is an unknown config, the sequence-sharded
-    ``ssd_scan`` and training on a mesh (``train(mesh_shape=...)``), the
-    last two waiting for LM multi-device."""
+    blocks, the encoder, the patch prefix, training (``loss_fn``), the
+    sequence-sharded ``ssd_scan`` and training on a mesh work now; what
+    still raises is an unknown config, the sequence-sharded scan called
+    outside a ``shard_map`` body (it is a collective), and a mesh larger
+    than the process group (``build`` with no world to lay it on)."""
     for name in ("phi3.5-moe-42b-a6.6b", "arctic-480b", "internvl2-1b",
                  "whisper-base"):
         assert configs.get_config(name).name == name
@@ -127,11 +128,19 @@ def test_unported_configs_and_kinds_raise():
     assert "encoder" in lm.init_params(gen, wcfg)
     from repro_torch.kernels import ops
     q = torch.zeros(1, 1, 8, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.ssd_scan(q, q, q, torch.zeros(1, 1, 8), axis_names=("sp",))
-    from repro_torch.launch.train import TrainConfig, train
-    with pytest.raises(NotImplementedError, match="LM multi-device.*ROADMAP"):
-        train(TrainConfig(smoke=True, mesh_shape=(2, 2), device="cpu"))
+    with pytest.raises(ValueError, match="shard_map"):
+        ops.ssd_scan(q, q, q, torch.zeros(1, 1, 8), chunk=4,
+                     axis_names=("sp",))
+    from repro_torch.core import spmd
+    mesh = spmd.Mesh(["cpu"] * 2, ("sp",))
+    sp = spmd.P(None, None, "sp")
+    y = spmd.shard_map(
+        lambda *a: ops.ssd_scan(*a, chunk=4, axis_names=("sp",)), mesh,
+        sp, sp)(q, q, q, torch.zeros(1, 1, 8))
+    assert y.shape == q.shape
+    from repro_torch.launch.train import TrainConfig, build
+    with pytest.raises(ValueError, match="need 4 devices, have 1"):
+        build(TrainConfig(smoke=True, mesh_shape=(2, 2), device="cpu"))
 
 
 def test_param_tree_matches_reference(shared_params):

@@ -219,9 +219,10 @@ def _chip_smoke(*args):
 
 def test_chip_smoke_cpu_rehearsal_runs_the_flow():
     """The chip script's series, compose, engine, serving, restore,
-    simulate, multi-device, LM and training phases (every served
-    configuration's smoke model) on the CPU (plain kernels): it prints
-    their lines, no result line, and exits 3."""
+    simulate, multi-device, LM, training and LM multi-device phases (every
+    served configuration's smoke model; the mesh on gloo CPU ranks) on the
+    CPU (plain kernels): it prints their lines, no result line, and exits
+    3."""
     out = _chip_smoke("--cpu-rehearsal")
     assert out.returncode == 3, out.stderr
     lines = out.stdout.splitlines()
@@ -233,7 +234,9 @@ def test_chip_smoke_cpu_rehearsal_runs_the_flow():
         "lm_serve phi3.5-moe-42b-a6.6b", "lm_serve arctic-480b",
         "lm_serve internvl2-1b", "lm_serve whisper-base",
         "lm_check", "lm_check xlstm-350m", "lm_check whisper-base",
-        "train xlstm-350m", "train phi3.5-moe-42b", "train_check"]
+        "train xlstm-350m", "train phi3.5-moe-42b", "train_check",
+        "ssd_sharded", "compressed_psum", "train_mesh xlstm-350m",
+        "train_mesh_check"]
     assert '"ok"' not in out.stdout
 
 

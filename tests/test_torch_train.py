@@ -160,8 +160,11 @@ def test_train_defaults_and_what_raises(tmp_path, monkeypatch):
     assert (cfg_t.arch, cfg_t.batch, cfg_t.seq_len, cfg_t.lr) == (
         "xlstm-350m", 8, 256, 3e-4)
     assert cfg_t.device is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build(TrainConfig(mesh_shape=(2, 2)))
+    # A mesh needs a world of ranks: build() lays it on the initialised
+    # process group (train() spawns one); with none it raises, as the
+    # reference's make_mesh does with too few devices.
+    with pytest.raises(ValueError, match="need 4 devices, have 1"):
+        build(TrainConfig(mesh_shape=(2, 2), device="cpu"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         train(TrainConfig(smoke=True, steps=1, ckpt_dir=str(tmp_path)))
