@@ -123,7 +123,16 @@ kernels' launch counts zeroed just before it and read just after:
   and 1e-3: losses, grad norms and each leaf's first moment at
   ``train_check``'s bounds, and at eps 1e-3 the params too (at 1e-8 an
   element whose gradient is below float noise takes Adam's step with
-  either sign; the line counts them).
+  either sign; the line counts them);
+* ``dryrun``: ``repro_torch.launch.dryrun`` in child processes (its fake
+  process group never meets the ``train_mesh`` world): the cells
+  xlstm-350m x train_4k (the sLSTM loop counted once) and qwen3-32b x
+  decode_32k on the fake production 16 x 16 mesh, each with its
+  seconds; the dry-run's one-device peak for the ``train xlstm-350m``
+  phase's step beside the peak of one such step measured on the card and
+  the peak that phase measured; and one (2, 2) step's
+  predicted collectives by kind beside what ``train_mesh``'s rank 0
+  staged a step.  The gaps are reported, not gated.
 
 Output, one line each: ``env``, ``build``, ``kernel warp_ncc``,
 ``kernel lookback_scan``, ``kernel tile_local_scan``, ``kernel tile_apply``,
@@ -145,16 +154,16 @@ chunk_scan's SASS and lookback_scan's longest walk),
 ``lm_check`` (and ``lm_check xlstm-350m``, ``lm_check whisper-base``),
 ``train xlstm-350m``, ``train phi3.5-moe-42b``, ``train_check``,
 ``ssd_sharded``, ``compressed_psum``, ``train_mesh xlstm-350m``,
-``train_mesh_check``, ``kernels`` (JSON), the card's
+``train_mesh_check``, ``dryrun``, ``kernels`` (JSON), the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``.  Any
 failed phase raises and the script exits non-zero; without a CUDA device it
 exits 2 and prints no result.
 
 ``--cpu-rehearsal`` runs the series, compose, engine, serving, restore,
-simulate, collective, sharded, LM, training and LM multi-device phases on
-the CPU at small sizes (the LM and training phases on each configuration's
-smoke config, the mesh on gloo CPU ranks) with the kernels' plain
-versions, to rehearse the script's flow without a card; it skips the
+simulate, collective, sharded, LM, training, LM multi-device and dry-run
+phases on the CPU at small sizes (the LM and training phases on each
+configuration's smoke config, the mesh on gloo CPU ranks, the dry-run's
+cells on a fake (2, 2) world) with the kernels' plain versions, to rehearse the script's flow without a card; it skips the
 kernel phases and exits 3 without a result line.
 """
 
@@ -3683,6 +3692,164 @@ def run_train_mesh_check(device, smoke: bool = False) -> dict:
             "launches": counts}
 
 
+# dryrun: two cells of the production dry-run at 16 x 16 (the sLSTM's
+# once-counted recurrence, and a decode), and the dry-run's predictions for
+# this script's own training phases, each in a child process of its own
+# (the fake process group must never meet the train_mesh gloo world).
+DRYRUN_CELLS = (("xlstm-350m", "train_4k"), ("qwen3-32b", "decode_32k"))
+DRYRUN_TIMEOUT_S = 170        # the phase's budget: the children run at once
+# host_staging's op names -> the dry-run's collective kinds.
+STAGED_KINDS = {"all_gather_into_tensor": "all-gather",
+                "all_gather_into_tensor_coalesced": "all-gather",
+                "reduce_scatter_tensor": "reduce-scatter",
+                "reduce_scatter_tensor_coalesced": "reduce-scatter",
+                "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+                "all_to_all_single": "all-to-all", "broadcast": "broadcast"}
+
+_DRYRUN_CHILD = r"""
+import json, sys, time
+sys.path.insert(0, %(src)r)
+from repro_torch.launch import dryrun
+from repro_torch.models.config import ShapeConfig
+t0 = time.perf_counter()
+if %(what)r == "cell":
+    shape = (ShapeConfig(*%(shape)r) if isinstance(%(shape)r, tuple)
+             else %(shape)r)
+    out = dryrun.run_cell(%(arch)r, shape, multi_pod=False, save=False,
+                          verbose=False, mesh_shape=%(mesh)r, smoke=%(smoke)r)
+else:
+    out = dryrun.count_step(%(arch)r, ShapeConfig(*%(shape)r),
+                            mesh_shape=%(mesh)r, smoke=%(smoke)r,
+                            once=%(once)r)
+out["seconds"] = time.perf_counter() - t0
+print("DRYRUN " + json.dumps(out))
+"""
+
+
+def _one_step_peak(device, smoke: bool, seq: int):
+    """The card's peak over one ``train`` phase step of a fresh model
+    (init, AdamW state, one step), above what was allocated before; None
+    off the card."""
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+
+    if device.type != "cuda":
+        return None
+    acfg = _lm_config(smoke, TRAIN_ARCH)
+    opt_cfg = adamw.AdamWConfig(lr=TRAIN_LR)
+    _free_device(device)
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    params = lm.init_params(torch.Generator(device=device).manual_seed(0),
+                            acfg)
+    opt = adamw.init(params, opt_cfg)
+    steps.make_train_step(acfg, opt_cfg)(
+        params, opt, _train_batch(acfg, TRAIN_BATCH, seq, 0, device))
+    _sync(device)
+    peak = torch.cuda.max_memory_allocated(device) - base
+    del params, opt
+    _free_device(device)
+    return peak
+
+
+def run_dryrun(device, one_device: dict, mesh_run: dict,
+               smoke: bool = False) -> dict:
+    """``repro_torch.launch.dryrun`` in child processes started together:
+    DRYRUN_CELLS at the production 16 x 16 (in a rehearsal the smoke
+    configs at short shapes on (2, 2)), and two predictions tied to this
+    run's training phases: the one-device peak of the ``train`` phase's
+    step (full depth, 8 x 256, bf16, the sLSTM loop walked whole) beside
+    the peak of one such step measured here on the card and the peak the
+    whole ``train`` phase measured (its restart holds a second model and
+    state), and one (2, 2) step's collectives by kind beside what
+    ``train_mesh``'s rank 0 staged through host memory a step.  No gate on
+    the gaps: every cell must be ``ok`` with positive counts."""
+    from repro_torch.models.config import SHAPES
+
+    seq = REHEARSAL_SEQ if smoke else TRAIN_SEQ
+    step_peak = _one_step_peak(device, smoke, seq)
+    train_shape = ("train_phase", seq, TRAIN_BATCH, "train")
+    jobs = {}
+    for arch, shape in DRYRUN_CELLS:
+        if smoke:
+            kind = SHAPES[shape].kind
+            shape = (f"{kind}_rehearsal", 32, 8, kind)
+        jobs[f"{arch} {shape if isinstance(shape, str) else shape[0]}"] = dict(
+            what="cell", arch=arch, shape=shape,
+            mesh=(2, 2) if smoke else None, smoke=smoke, once=True)
+    jobs["one_device_peak"] = dict(what="count", arch=TRAIN_ARCH,
+                                   shape=train_shape, mesh=None, smoke=smoke,
+                                   once=False)
+    jobs["mesh_step"] = dict(what="count", arch=TRAIN_ARCH, shape=train_shape,
+                             mesh=(2, 2), smoke=smoke, once=True)
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    src = os.path.join(ROOT, "src")
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-c", _DRYRUN_CHILD % dict(job, src=src)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for name, job in jobs.items()}
+    got, errors = {}, {}
+    try:
+        for name, proc in procs.items():
+            left = max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0))
+            out, err = proc.communicate(timeout=left)
+            line = [ln for ln in out.splitlines() if ln.startswith("DRYRUN ")]
+            if proc.returncode != 0 or not line:
+                errors[name] = err.strip().splitlines()[-3:]
+                continue
+            got[name] = json.loads(line[-1][len("DRYRUN "):])
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall_s = time.perf_counter() - t0
+    if errors:
+        raise AssertionError(f"dryrun: children failed: {errors}")
+    cells = {}
+    for arch, shape in DRYRUN_CELLS:
+        name = next(n for n in got if n.startswith(arch + " "))
+        cell = got[name]
+        if cell.get("status") != "ok" or not all(
+                cell[k] > 0 for k in ("flops_per_device", "bytes_per_device",
+                                      "arg_bytes", "peak_bytes")):
+            raise AssertionError(f"dryrun: {name}: {cell}")
+        cells[name] = {k: cell[k] for k in (
+            "mesh", "n_chips", "flops_per_device", "bytes_per_device",
+            "collective_bytes_per_device", "collectives", "arg_bytes",
+            "peak_bytes", "fits", "t_compute", "t_memory", "t_collective",
+            "bottleneck", "model_flops_ratio", "seconds")}
+    peak = got["one_device_peak"]
+    steps_run = len(mesh_run["loss_steps_2x2"])
+    staged = {}
+    for op, (calls, to_host, back) in mesh_run[
+            "staged_collectives_2x2"].items():
+        rec = staged.setdefault(STAGED_KINDS.get(op, op),
+                                {"count": 0.0, "bytes": 0.0})
+        rec["count"] += calls / steps_run
+        rec["bytes"] += back / steps_run
+    return {
+        "cells": cells,
+        "one_device_peak": {
+            "arch": TRAIN_ARCH, "batch": TRAIN_BATCH, "seq_len": seq,
+            "predicted_bytes": peak["peak_bytes"],
+            "predicted_arg_bytes": peak["arg_bytes"],
+            "measured_one_step": step_peak,
+            "measured_train_phase": one_device["max_memory_allocated"],
+            "seconds": peak["seconds"]},
+        "mesh_step_collectives": {
+            "mesh": [2, 2], "predicted_per_step": got["mesh_step"][
+                "collectives"],
+            "staged_per_step_rank0": staged, "steps_run": steps_run,
+            "seconds": got["mesh_step"]["seconds"]},
+        "device": None if smoke else _smi(),
+        "wall_s": wall_s,
+    }
+
+
 def _close_pool() -> None:
     """Stop the shared worker pool and wait for its threads, so none is
     alive while PyTorch tears down at exit."""
@@ -3743,8 +3910,10 @@ def main() -> int:
         _line("train_check", run_train_check(dev, smoke=True))
         _line("ssd_sharded", run_ssd_sharded(dev, smoke=True))
         _line("compressed_psum", run_compressed_psum(dev, smoke=True))
-        _line(f"train_mesh {TRAIN_ARCH}", run_train_mesh(dev, one, smoke=True))
+        mesh_run = run_train_mesh(dev, one, smoke=True)
+        _line(f"train_mesh {TRAIN_ARCH}", mesh_run)
         _line("train_mesh_check", run_train_mesh_check(dev, smoke=True))
+        _line("dryrun", run_dryrun(dev, one, mesh_run, smoke=True))
         _close_pool()
         print("cpu rehearsal: no result", file=sys.stderr)
         return 3
@@ -3853,8 +4022,10 @@ def main() -> int:
     ssd = run_ssd_sharded(dev)
     _line("ssd_sharded", ssd)
     _line("compressed_psum", run_compressed_psum(dev))
-    _line(f"train_mesh {TRAIN_ARCH}", run_train_mesh(dev, one))
+    mesh_run = run_train_mesh(dev, one)
+    _line(f"train_mesh {TRAIN_ARCH}", mesh_run)
     _line("train_mesh_check", run_train_mesh_check(dev))
+    _line("dryrun", run_dryrun(dev, one, mesh_run))
 
     k["launches"] = series["warp_ncc_launches"]
     k["launches_series_hier"] = hier["warp_ncc_launches"]

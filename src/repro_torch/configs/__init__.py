@@ -7,7 +7,7 @@ and shared attention blocks), the two MoE ones (``moe`` blocks) and the two
 with a frontend (InternVL2-1B's patch prefix, Whisper-base's encoder and
 cross-attention).  Full configs run at their published widths; smoke
 configs are reduced same-family models for the CPU.  An unknown name
-raises ``NotImplementedError``.
+raises ``ModuleNotFoundError``, as the reference's ``import_module`` does.
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ def list_archs() -> List[str]:
 def _module(name: str):
     mod_name = ALIASES.get(name, name.replace("-", "_").replace(".", "_"))
     if mod_name not in _ARCHS:
-        raise NotImplementedError(
+        raise ModuleNotFoundError(
             f"no config {name!r} (the registry has {list(ALIASES)})"
         )
     return import_module(f"repro_torch.configs.{mod_name}")

@@ -29,7 +29,7 @@ from repro_torch.core._tree import tree_map
 from repro_torch.core.spmd import P
 from repro_torch.models.config import ArchConfig
 
-from .mesh import axis_names, axis_size, dp_axes, tp_axis
+from .mesh import axis_names, axis_size, dp_axes, mesh_shape, tp_axis
 
 # Parents whose 2D weight is a *down* projection: (out_features inherit FSDP).
 _DOWN = {"wo", "w2", "out_proj", "head"}
@@ -216,8 +216,8 @@ def logits_spec(cfg: ArchConfig, mesh):
 
 def placements(spec: P, mesh) -> List[Any]:
     """DTensor placements of ``spec`` on ``mesh``: for each mesh dim,
-    ``Shard(d)`` for the tensor dim ``d`` that names it, else
-    ``Replicate()``.  A dim split over several axes takes ``Shard(d)`` on
+    ``Shard(d)`` for the tensor dim ``d`` that names it, else (or where
+    the axis has size 1) ``Replicate()``.  A dim split over several axes takes ``Shard(d)`` on
     each, in mesh order: the reference's major-first block order."""
     from torch.distributed.tensor import Replicate, Shard
 
@@ -237,7 +237,11 @@ def placements(spec: P, mesh) -> List[Any]:
             if a in where:
                 raise ValueError(f"spec {spec} names axis {a!r} twice")
             where[a] = d
-    return [Shard(where[a]) if a in where else Replicate() for a in names]
+    # An axis of size 1 splits nothing: replicated, so DTensor's rules
+    # never meet a sharded dim they would have to reshape.
+    sizes = mesh_shape(mesh)
+    return [Shard(where[a]) if a in where and sizes[a] > 1 else Replicate()
+            for a in names]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -93,11 +93,12 @@ def build(cfg_t: TrainConfig):
     return acfg, opt_cfg, mesh_step(acfg, opt_cfg, mesh), mesh
 
 
-def mesh_step(acfg, opt_cfg: adamw.AdamWConfig, mesh):
+def mesh_step(acfg, opt_cfg: adamw.AdamWConfig, mesh, *,
+              grad_accum: int = 1):
     """``steps.make_train_step`` on ``mesh``: the step takes DTensor params
     and state (``sharding.distribute`` by the rules) and a full batch, which
     it splits by ``batch_specs``, and runs under the activation anchors."""
-    step_fn = steps.make_train_step(acfg, opt_cfg)
+    step_fn = steps.make_train_step(acfg, opt_cfg, grad_accum=grad_accum)
     bspecs = shd.batch_specs(acfg, mesh, kind="train")
 
     def sharded_step(params, opt, batch):

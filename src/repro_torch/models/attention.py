@@ -42,11 +42,10 @@ def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
 
 
 def _project_qkv(p, cfg: ArchConfig, x, positions, *, rope: bool = True):
-    bsz, l, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = dense(p["wq"], x).reshape(bsz, l, hq, hd).transpose(1, 2)
-    k = dense(p["wk"], x).reshape(bsz, l, hkv, hd).transpose(1, 2)
-    v = dense(p["wv"], x).reshape(bsz, l, hkv, hd).transpose(1, 2)
+    q = shardctx.split_heads(dense(p["wq"], x), hq, hd).transpose(1, 2)
+    k = shardctx.split_heads(dense(p["wk"], x), hkv, hd).transpose(1, 2)
+    v = shardctx.split_heads(dense(p["wv"], x), hkv, hd).transpose(1, 2)
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
@@ -61,12 +60,11 @@ def _project_qkv(p, cfg: ArchConfig, x, positions, *, rope: bool = True):
 
 def attention_block(p, cfg: ArchConfig, x, positions, *, causal: bool = True):
     """Full-sequence attention (train / prefill).  x: (B, L, D)."""
-    bsz, l, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, positions)
     o = shardctx.local_heads(
         lambda q, k, v: kops.attention(q, k, v, causal=causal,
                                        backend=cfg.attn_backend), q, k, v)
-    o = o.transpose(1, 2).reshape(bsz, l, cfg.n_heads * cfg.hd)
+    o = shardctx.merge_heads(o.transpose(1, 2))
     return dense(p["wo"], o.to(x.dtype))
 
 
@@ -76,60 +74,81 @@ def attention_prefill(p, cfg: ArchConfig, x, positions, cache):
     When the prompt fills the whole cache it replaces it outright; otherwise
     the prompt's keys and values go into the cache's first positions (a new
     cache, as the reference's functional update)."""
-    bsz, l, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, positions)
-    o = kops.attention(q, k, v, causal=True, backend=cfg.attn_backend)
-    o = o.transpose(1, 2).reshape(bsz, l, cfg.n_heads * cfg.hd)
-    if l == cache["k"].shape[2]:
-        cache = {"k": k.to(cache["k"].dtype), "v": v.to(cache["v"].dtype)}
-    else:
-        ck, cv = cache["k"].clone(), cache["v"].clone()
-        ck[:, :, :l] = k.to(ck.dtype)
-        cv[:, :, :l] = v.to(cv.dtype)
-        cache = {"k": ck, "v": cv}
+    o = shardctx.local_heads(
+        lambda q, k, v: kops.attention(q, k, v, causal=True,
+                                       backend=cfg.attn_backend), q, k, v)
+    o = shardctx.merge_heads(o.transpose(1, 2))
+    cache = {"k": shardctx.fill_cache(cache["k"], k),
+             "v": shardctx.fill_cache(cache["v"], v)}
     return dense(p["wo"], o.to(x.dtype)), cache
 
 
 def attention_decode(p, cfg: ArchConfig, x, pos, cache):
-    """One-token decode: x (B, 1, D); pos int (current position).
+    """One-token decode: x (B, 1, D); pos the current position, an int or
+    a 0-d integer tensor (read on the device, never on the host: a meta
+    tensor runs too).
 
     The cache write is a one-hot select, as the reference's: a position past
     the cache writes nothing (``max_len`` must cover prompt + new tokens).
     GQA uses grouped einsums instead of repeating kv heads."""
     bsz = x.shape[0]
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    positions = torch.full((bsz, 1), int(pos), dtype=torch.int32,
-                           device=x.device)
+    positions = torch.as_tensor(pos, dtype=torch.int32,
+                                device=x.device).reshape(1, 1).expand(bsz, 1)
     q, k, v = _project_qkv(p, cfg, x, positions)
-    s_len = cache["k"].shape[2]
-    slots = torch.arange(s_len, device=x.device)
+    if hasattr(cache["k"], "device_mesh"):
+        # On a mesh the cache stays sequence-sharded: each rank attends
+        # its slots, and the blocks combine (``shardctx.local_cache``).
+        o, ck, cv = shardctx.local_cache(
+            lambda q, k, v, ck, cv, lo: _decode_scores(q, k, v, ck, cv, pos,
+                                                       lo, hkv),
+            _decode_out, q, k, v, cache["k"], cache["v"])
+        o = shardctx.merge_heads(o.reshape(bsz, 1, hq, hd))
+        return dense(p["wo"], o.to(x.dtype)), {"k": ck, "v": cv}
+    scores, ck, cv = _decode_scores(q, k, v, cache["k"], cache["v"], pos, 0,
+                                    hkv)
+    o = _decode_out(torch.softmax(scores, dim=-1), cv)
+    o = o.reshape(bsz, 1, hq * hd)
+    return dense(p["wo"], o.to(x.dtype)), {"k": ck, "v": cv}
+
+
+def _decode_scores(q, k, v, ck, cv, pos, lo: int, hkv: int):
+    """:func:`attention_decode`'s scores over the cache slots ``lo:lo +
+    S_block`` (all of them on one device; a rank's block on a mesh): the
+    token written into its slot if it lies there, and (the masked float32
+    scores (B, Hkv, G, S_block), ck, cv)."""
+    bsz, hq, _, hd = q.shape
+    slots = torch.arange(lo, lo + ck.shape[2], device=q.device)
     onehot = (slots == pos)[None, None, :, None]
-    ck = torch.where(onehot, k.to(cache["k"].dtype), cache["k"])
-    cv = torch.where(onehot, v.to(cache["v"].dtype), cache["v"])
-    g = hq // hkv
-    qg = q.reshape(bsz, hkv, g, hd)                   # (B, Hkv, G, hd)
+    ck = torch.where(onehot, k.to(ck.dtype), ck)
+    cv = torch.where(onehot, v.to(cv.dtype), cv)
+    qg = q.reshape(bsz, hkv, hq // hkv, hd)
     # The dot accumulates in float32, as the reference's
     # preferred_element_type=float32.
     scores = torch.einsum("bkgd,bksd->bkgs", qg.to(ck.dtype).float(),
                           ck.float()) * (hd ** -0.5)
     mask = (slots <= pos)[None, None, None, :]
-    scores = torch.where(mask, scores, -1e30)
-    probs = torch.softmax(scores, dim=-1)
-    o = torch.einsum("bkgs,bksd->bkgd", probs.to(cv.dtype).float(), cv.float())
-    o = o.reshape(bsz, 1, hq * hd)
-    return dense(p["wo"], o.to(x.dtype)), {"k": ck, "v": cv}
+    return torch.where(mask, scores, -1e30), ck, cv
+
+
+def _decode_out(probs, cv):
+    """A block's share of the output, the probabilities rounded to the
+    cache's dtype as one device rounds them."""
+    return torch.einsum("bkgs,bksd->bkgd", probs.to(cv.dtype).float(),
+                        cv.float())
 
 
 def cross_attention(p, cfg: ArchConfig, x, enc_out):
     """Encoder-decoder cross attention (whisper): queries from ``x``, keys
     and values from ``enc_out``, no RoPE and no qk-norm; non-causal, on
     the plain path, as the reference hard-codes it."""
-    bsz, l, _ = x.shape
-    le = enc_out.shape[1]
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = dense(p["wq"], x).reshape(bsz, l, hq, hd).transpose(1, 2)
-    k = dense(p["wk"], enc_out).reshape(bsz, le, hkv, hd).transpose(1, 2)
-    v = dense(p["wv"], enc_out).reshape(bsz, le, hkv, hd).transpose(1, 2)
-    o = kops.attention(q, k, v, causal=False, backend="xla")
-    o = o.transpose(1, 2).reshape(bsz, l, hq * hd)
+    q = shardctx.split_heads(dense(p["wq"], x), hq, hd).transpose(1, 2)
+    k = shardctx.split_heads(dense(p["wk"], enc_out), hkv, hd).transpose(1, 2)
+    v = shardctx.split_heads(dense(p["wv"], enc_out), hkv, hd).transpose(1, 2)
+    o = shardctx.local_heads(
+        lambda q, k, v: kops.attention(q, k, v, causal=False, backend="xla"),
+        *(shardctx.constrain_heads(t) for t in (q, k, v)))
+    o = shardctx.merge_heads(o.transpose(1, 2))
     return dense(p["wo"], o.to(x.dtype))

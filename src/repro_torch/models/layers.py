@@ -15,7 +15,8 @@ anchors where the reference does.  The training loss is
 vocabulary chunks, each chunk recomputed in the backward pass, so (B, L, V)
 logits never exist; ``softmax_cross_entropy`` over materialized logits is
 its oracle.  On a mesh each rank takes the loss of its own batch rows
-against the whole head (``shardctx.local_rows``).
+against its "model" block of the head's vocabulary
+(``shardctx.local_vocab``).
 """
 
 from __future__ import annotations
@@ -198,8 +199,13 @@ def head_init(gen, d: int, vocab: int, n_chunks: int, dtype):
 
 
 def head_logits(p, x, softcap: float = 0.0):
-    """Materialized logits (tests / decode / small models)."""
-    logits = torch.einsum("bld,cdv->blcv", x, p["w"])
+    """Materialized logits (tests / decode / small models); on a mesh each
+    rank's vocab blocks, joined (``shardctx.vocab_logits``)."""
+    if hasattr(x, "device_mesh"):
+        logits = shardctx.vocab_logits(
+            lambda w, x: torch.einsum("bld,cdv->blcv", x, w), p["w"], x)
+    else:
+        logits = torch.einsum("bld,cdv->blcv", x, p["w"])
     logits = logits.reshape(*x.shape[:-1], -1).float()
     if softcap:
         logits = torch.tanh(logits / softcap) * softcap
@@ -242,37 +248,46 @@ def chunked_cross_entropy(p, x, labels, *, softcap: float = 0.0,
     for O(V/NC) live memory instead of O(V).
     """
     if hasattr(x, "device_mesh"):
-        # On a mesh each rank takes the loss of its batch rows against the
-        # whole head (gathered): one partial sum of nll and of tokens.
-        nll, count = shardctx.local_rows(
-            lambda w, x, labels: _ce_sums(w, x, labels, softcap, ignore_id),
-            p["w"], x, labels, outs=("sum", "sum"))
+        # On a mesh each rank takes the loss of its batch rows against its
+        # vocab block of the head: one partial sum of nll and of tokens.
+        vc = p["w"].shape[2]
+        nll, count = shardctx.local_vocab(
+            lambda w, x, labels, lo: _ce_parts(w, x, labels, softcap,
+                                               ignore_id, vc, lo),
+            p["w"], x, labels)
     else:
-        nll, count = _ce_sums(p["w"], x, labels, softcap, ignore_id)
+        logz, gold, mask = _ce_parts(p["w"], x, labels, softcap, ignore_id)
+        nll = (logz - gold) * mask
+        nll, count = nll.sum(), mask.sum()
     return nll / torch.clamp(count, min=1)
 
 
-def _ce_sums(head_w, x, labels, softcap: float, ignore_id: int):
-    """(sum of the non-ignored tokens' nll, their count) over a
-    chunk-major head (NC, D, V/NC)."""
-    nc, d, vc = head_w.shape
+def _ce_parts(head_w, x, labels, softcap: float, ignore_id: int,
+              vc=None, lo: int = 0):
+    """Each token's (logsumexp, gold logit, non-ignored mask) over a
+    chunk-major head (NC, D, V/NC), or over the columns ``lo:lo +
+    head_w.shape[2]`` of each of its chunks of ``vc`` columns (a "model"
+    rank's block): the gold logit is 0 where the label lies elsewhere."""
+    nc, d, vc_here = head_w.shape
+    vc = vc_here if vc is None else vc
     mask = labels != ignore_id
     labels_s = torch.where(mask, labels, 0).long()
     chunk_id = labels_s // vc
-    chunk_pos = labels_s % vc
+    chunk_pos = labels_s % vc - lo
+    in_block = (chunk_pos >= 0) & (chunk_pos < vc_here)
+    chunk_pos = chunk_pos.clamp(0, vc_here - 1)
     b, l = labels.shape
     m = torch.full((b, l), -1e30, dtype=torch.float32, device=x.device)
     s = torch.zeros((b, l), dtype=torch.float32, device=x.device)
     gold = torch.zeros((b, l), dtype=torch.float32, device=x.device)
     remat = torch.is_grad_enabled()
     for ci, w in enumerate(head_w.unbind(0)):
-        args = (m, s, gold, x, w, chunk_id == ci, chunk_pos, softcap)
+        args = (m, s, gold, x, w, (chunk_id == ci) & in_block, chunk_pos,
+                softcap)
         if remat:
             # The chunk draws no random numbers: no RNG state to keep.
             m, s, gold = checkpoint(_ce_chunk, *args, use_reentrant=False,
                                     preserve_rng_state=False)
         else:
             m, s, gold = _ce_chunk(*args)
-    logz = m + torch.log(s)
-    nll = (logz - gold) * mask
-    return nll.sum(), mask.sum()
+    return m + torch.log(s), gold, mask

@@ -19,6 +19,8 @@ exp-with-max-stabilizer; Mamba2 uses n_groups=1 (B/C shared across heads).
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 
@@ -92,7 +94,7 @@ def _mamba2_inner(p, cfg: ArchConfig, u, conv_state=None, ssm_state=None,
 
     dt = F.softplus(dt.float() + p["dt_bias"])                      # (B, L, nh)
     log_a = -torch.exp(p["a_log"]) * dt                             # <= 0
-    v = x.reshape(bsz, l, nh, hd).transpose(1, 2)                   # (B,nh,L,hd)
+    v = shardctx.split_heads(x, nh, hd).transpose(1, 2)             # (B,nh,L,hd)
     v_in = v * dt.transpose(1, 2)[..., None].to(v.dtype)
     # n_groups = 1: B and C are shared by the heads.  The kernels take them
     # per (batch, head, chunk), so they are materialised, as the reference's
@@ -107,9 +109,9 @@ def _mamba2_inner(p, cfg: ArchConfig, u, conv_state=None, ssm_state=None,
     la = log_a.transpose(1, 2)                                      # (B, nh, L)
 
     if l == 1 and ssm_state is not None:
-        y, new_ssm = kops.ssm_decode_step(
-            q[:, :, 0], k[:, :, 0], v_in[:, :, 0], la[:, :, 0], ssm_state
-        )
+        y, new_ssm = shardctx.local_heads(
+            kops.ssm_decode_step, q[:, :, 0], k[:, :, 0], v_in[:, :, 0],
+            la[:, :, 0], ssm_state)
         y = y[:, :, None]
     else:
         y = shardctx.local_heads(
@@ -122,7 +124,7 @@ def _mamba2_inner(p, cfg: ArchConfig, u, conv_state=None, ssm_state=None,
             ), q, k, v_in, la)
         new_ssm = None  # full-state return handled by the prefill wrapper
     y = y + p["d_skip"][None, :, None, None] * v.float()
-    y = y.transpose(1, 2).reshape(bsz, l, di).to(u.dtype)
+    y = shardctx.merge_heads(y.transpose(1, 2)).to(u.dtype)
     # The gate's product feeds the norm's float32 upcast, and XLA, inside
     # the reference's compiled layer, forms it in float32 without rounding
     # it to u's type first; so does this.
@@ -167,14 +169,18 @@ def mamba2_prefill(p, cfg: ArchConfig, x, state):
     xs, bmat, cmat = torch.split(xbc_c, [di, ds, ds], dim=-1)
     dtv = F.softplus(dt.float() + p["dt_bias"])
     log_a = (-torch.exp(p["a_log"]) * dtv).transpose(1, 2)         # (B,nh,L)
-    v = (xs.reshape(bsz, l, nh, hd).transpose(1, 2)
+    v = (shardctx.split_heads(xs, nh, hd).transpose(1, 2)
          * dtv.transpose(1, 2)[..., None].to(xs.dtype))
     k = bmat[:, None].expand(bsz, nh, l, ds)
-    # final state = sum_t decay(t..L) k_t^T v_t
-    ca = torch.cumsum(log_a, dim=-1)
-    to_end = torch.exp(ca[..., -1:] - ca)                           # (B,nh,L)
-    ssm = torch.einsum("bhls,bhlv->bhsv", k.float() * to_end[..., None],
-                       v.float())
+
+    def final(k, v, log_a):
+        # final state = sum_t decay(t..L) k_t^T v_t
+        ca = torch.cumsum(log_a, dim=-1)
+        to_end = torch.exp(ca[..., -1:] - ca)                       # (B,nh,L)
+        return torch.einsum("bhls,bhlv->bhsv", k.float() * to_end[..., None],
+                            v.float())
+
+    ssm = shardctx.local_heads(final, k, v, log_a)
     y, _, _ = _mamba2_inner(p, cfg, x)
     return y, {"conv": new_conv, "ssm": ssm}
 
@@ -199,9 +205,8 @@ def mlstm_init(gen, cfg: ArchConfig):
 
 
 def _mlstm_qkv(p, cfg: ArchConfig, x):
-    bsz, l, _ = x.shape
     nh, hd = cfg.n_heads, cfg.ssm_head_dim
-    shp = lambda t: t.reshape(bsz, l, nh, hd).transpose(1, 2)
+    shp = lambda t: shardctx.split_heads(t, nh, hd).transpose(1, 2)
     q = shp(dense(p["wq"], x)) * (hd ** -0.5)
     k = shp(dense(p["wk"], x)) * (hd ** -0.5)
     v = shp(dense(p["wv"], x))
@@ -237,8 +242,7 @@ def _mlstm_out(p, cfg: ArchConfig, x, y):
 
 
 def mlstm_apply(p, cfg: ArchConfig, x, *, seq_axes=None):
-    bsz, l, _ = x.shape
-    nh, hd = cfg.n_heads, cfg.ssm_head_dim
+    l = x.shape[1]
     q, k, v, i, log_f = _mlstm_qkv(p, cfg, x)
     k_in = k * i[..., None].to(k.dtype)
 
@@ -255,8 +259,7 @@ def mlstm_apply(p, cfg: ArchConfig, x, *, seq_axes=None):
         return num / torch.clamp(denom, min=1.0)[..., None].to(num.dtype)
 
     y = shardctx.local_heads(heads, q, k_in, v, log_f)
-    y = y.transpose(1, 2).reshape(bsz, l, nh * hd)
-    return _mlstm_out(p, cfg, x, y)
+    return _mlstm_out(p, cfg, x, shardctx.merge_heads(y.transpose(1, 2)))
 
 
 def mlstm_state_init(cfg: ArchConfig, batch: int, device=None):
@@ -272,15 +275,21 @@ def mlstm_decode(p, cfg: ArchConfig, x, state):
     bsz = x.shape[0]
     nh, hd = cfg.n_heads, cfg.ssm_head_dim
     q, k, v, i, log_f = _mlstm_qkv(p, cfg, x)
-    q1, k1, v1 = q[:, :, 0].float(), k[:, :, 0], v[:, :, 0]
-    f = torch.exp(log_f[..., 0])[..., None, None]
-    k_in = (k1 * i[..., 0][..., None].to(k1.dtype)).float()
-    C = f * state["C"] + torch.einsum("bhd,bhv->bhdv", k_in, v1.float())
-    n = f[..., 0] * state["n"] + k_in
-    num = torch.einsum("bhd,bhdv->bhv", q1, C)
-    denom = torch.abs(torch.einsum("bhd,bhd->bh", q1, n))
-    y = (num / torch.clamp(denom, min=1.0)[..., None]).to(x.dtype)
-    y = y.reshape(bsz, 1, nh * hd)
+
+    def step(q1, k1, v1, i1, log_f1, C, n):
+        q1 = q1.float()
+        f = torch.exp(log_f1)[..., None, None]
+        k_in = (k1 * i1[..., None].to(k1.dtype)).float()
+        C = f * C + torch.einsum("bhd,bhv->bhdv", k_in, v1.float())
+        n = f[..., 0] * n + k_in
+        num = torch.einsum("bhd,bhdv->bhv", q1, C)
+        denom = torch.abs(torch.einsum("bhd,bhd->bh", q1, n))
+        return num / torch.clamp(denom, min=1.0)[..., None], C, n
+
+    y, C, n = shardctx.local_heads(
+        step, q[:, :, 0], k[:, :, 0], v[:, :, 0], i[..., 0], log_f[..., 0],
+        state["C"], state["n"])
+    y = shardctx.merge_heads(y.to(x.dtype).reshape(bsz, 1, nh, hd))
     return _mlstm_out(p, cfg, x, y), {"C": C, "n": n}
 
 
@@ -288,10 +297,15 @@ def mlstm_prefill(p, cfg: ArchConfig, x, state):
     """Prefill: full scan + the final (C, n) state."""
     q, k, v, i, log_f = _mlstm_qkv(p, cfg, x)
     k_in = (k * i[..., None].to(k.dtype)).float()
-    ca = torch.cumsum(log_f, dim=-1)
-    to_end = torch.exp(ca[..., -1:] - ca)                          # (B,nh,L)
-    C = torch.einsum("bhld,bhlv->bhdv", k_in * to_end[..., None], v.float())
-    n = torch.einsum("bhld,bhl->bhd", k_in, to_end)
+
+    def final(k_in, v, log_f):
+        ca = torch.cumsum(log_f, dim=-1)
+        to_end = torch.exp(ca[..., -1:] - ca)                      # (B,nh,L)
+        C = torch.einsum("bhld,bhlv->bhdv", k_in * to_end[..., None],
+                         v.float())
+        return C, torch.einsum("bhld,bhl->bhd", k_in, to_end)
+
+    C, n = shardctx.local_heads(final, k_in, v, log_f)
     y = mlstm_apply(p, cfg, x)
     return y, {"C": C, "n": n}
 
@@ -321,7 +335,7 @@ def _slstm_cell(p, cfg: ArchConfig, wx_t, state, r=None):
     nh, hd = r.shape[0], r.shape[1]
     h, c, n = state["h"], state["c"], state["n"]
     rec = torch.einsum("bhd,hdk->bhk", h, r)                  # (B, nh, 4hd)
-    pre = wx_t.reshape(-1, nh, 4 * hd).float() + rec
+    pre = shardctx.divisible(wx_t, -1, nh).reshape(-1, nh, 4 * hd).float() + rec
     z, i, f, o = torch.chunk(pre, 4, dim=-1)
     z = torch.tanh(z)
     i = torch.exp(torch.clamp(i, max=10.0) - 10.0)  # bounded exp input gate
@@ -341,9 +355,31 @@ def slstm_state_init(cfg: ArchConfig, batch: int, device=None):
     return {"h": zero(), "c": zero(), "n": zero()}
 
 
+_ONCE = [False]
+
+
+@contextlib.contextmanager
+def recurrence_counted_once():
+    """Inside, the sLSTM recurrence runs its cell for the first step only
+    and repeats that step's h over the sequence: the full loop's shapes for
+    one step's work.  ``launch/dryrun.py`` counts a step so, as XLA's cost
+    analysis counts a ``while`` body once, and adds the other steps'
+    FLOPs analytically.  The values are not the model's."""
+    prev = _ONCE[0]
+    _ONCE[0] = True
+    try:
+        yield
+    finally:
+        _ONCE[0] = prev
+
+
 def _slstm_loop(p, cfg: ArchConfig, wx, state, r):
     """The recurrence over wx's L steps: (h for every step (B, L, nh, hd),
     final state)."""
+    if _ONCE[0]:
+        state = _slstm_cell(p, cfg, wx[:, 0], state, r)
+        h = state["h"]
+        return h[:, None].expand(h.shape[0], wx.shape[1], *h.shape[1:]), state
     hs = []
     for t in range(wx.shape[1]):
         state = _slstm_cell(p, cfg, wx[:, t], state, r)
@@ -351,15 +387,16 @@ def _slstm_loop(p, cfg: ArchConfig, wx, state, r):
     return torch.stack(hs, dim=1), state
 
 
-def _slstm_local(p, cfg: ArchConfig, wx):
+def _slstm_local(p, cfg: ArchConfig, wx, state=None):
     """The recurrence of a DTensor ``wx`` on local shards: batch over its
     data axes and heads over "model" where they divide, inside one
     ``to_local``/``from_local`` pair (~500 steps a layer would otherwise
-    pay DTensor's dispatch on each of their launches).  The heads' h come
-    back as a DTensor (B, L, D) laid out alike.  ``r``'s gradient on a
-    rank covers its batch rows only: partial over the data axes the rows
-    are split over."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    pay DTensor's dispatch on each of their launches), from ``state``
+    (zeros when None).  The heads' h come back as a DTensor (B, L, D) laid
+    out alike, with the final state.  ``r``'s gradient on a rank covers
+    its batch rows only: partial over the data axes the rows are split
+    over."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
 
     mesh = wx.device_mesh
     names = mesh.mesh_dim_names
@@ -368,11 +405,11 @@ def _slstm_local(p, cfg: ArchConfig, wx):
     wx_pl, r_pl, r_grad_pl = [], [], []
     for i, name in enumerate(names):
         n = mesh.size(i)
-        if name == "model" and nh % n == 0:
+        if name == "model" and n > 1 and nh % n == 0:
             wx_pl.append(Shard(2))
             r_pl.append(Shard(0))
             r_grad_pl.append(Shard(0))
-        elif name != "model" and bsz % n == 0:
+        elif name != "model" and n > 1 and bsz % n == 0:
             wx_pl.append(Shard(0))
             r_pl.append(Replicate())
             r_grad_pl.append(Partial())
@@ -380,24 +417,31 @@ def _slstm_local(p, cfg: ArchConfig, wx):
             wx_pl.append(Replicate())
             r_pl.append(Replicate())
             r_grad_pl.append(Replicate())
-    wx_l = wx.redistribute(mesh, wx_pl).to_local()
-    r_l = p["r"].float().redistribute(mesh, r_pl).to_local(
-        grad_placements=r_grad_pl)
-    # Shard(0) on several data axes nests; the local batch is what is left.
-    state = slstm_state_init(cfg, wx_l.shape[0], device=wx_l.device)
-    state = {k: v[:, :r_l.shape[0]] for k, v in state.items()}
-    h, _ = _slstm_loop(p, cfg, wx_l, state, r_l)
+    wx_l = shardctx.to_local(wx, wx_pl)
+    r_l = shardctx.to_local(p["r"].float(), r_pl, r_grad_pl)
+    # A state (B, nh, hd) is laid out as wx: batch, then heads.
+    st_pl = [Shard(1) if isinstance(q, Shard) and q.dim == 2 else q
+             for q in wx_pl]
+    if state is None:
+        # Shard(0) on several data axes nests; the local batch is what is
+        # left.
+        state = slstm_state_init(cfg, wx_l.shape[0], device=wx_l.device)
+        state = {k: v[:, :r_l.shape[0]] for k, v in state.items()}
+    else:
+        state = {k: shardctx.to_local(v, st_pl) for k, v in state.items()}
+    h, state = _slstm_loop(p, cfg, wx_l, state, r_l)
     h = h.reshape(wx_l.shape[0], l, -1)
-    return DTensor.from_local(h, mesh, wx_pl, run_check=False,
-                              shape=(bsz, l, cfg.d_model),
-                              stride=(l * cfg.d_model, cfg.d_model, 1))
+    return (shardctx.from_local(h, mesh, wx_pl, shape=(bsz, l, cfg.d_model)),
+            {k: shardctx.from_local(v, mesh, st_pl, shape=(bsz, nh, v.shape[2]))
+             for k, v in state.items()})
 
 
 def slstm_apply(p, cfg: ArchConfig, x, state=None, return_state: bool = False):
     bsz, l, d = x.shape
     wx = dense(p["w_in"], x)                              # (B, L, 4D)
-    if state is None and hasattr(wx, "device_mesh"):
-        y = _slstm_local(p, cfg, wx).to(x.dtype)
+    if hasattr(wx, "device_mesh"):
+        y, state = _slstm_local(p, cfg, wx, state)
+        y = y.to(x.dtype)
     else:
         if state is None:
             state = slstm_state_init(cfg, bsz, device=x.device)

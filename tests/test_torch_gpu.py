@@ -1703,10 +1703,10 @@ def _card_mesh_steps(arch, device, mesh=None):
             [np.asarray(t, np.float32) for t in tree_flatten(start)[0]])
 
 
-def _card_mesh_rank(rank, device, arch):
+def _card_mesh_rank(rank, device, arch, shape=(2, 2)):
     from repro_torch.launch.mesh import make_mesh
 
-    mesh = make_mesh((2, 2), ("data", "model"), device=str(device))
+    mesh = make_mesh(shape, ("data", "model"), device=str(device))
     out = _card_mesh_steps(arch, device, mesh)
     return out if rank == 0 else None
 
@@ -1727,6 +1727,28 @@ def test_float32_steps_on_a_card_mesh_match_one_device(cuda, arch):
     ol, og, op, om, start = _card_mesh_steps(arch, cuda)
     moved = max(float(np.abs(b - a).max()) for a, b in zip(start, op))
     assert moved > 1e-3, moved
+    np.testing.assert_allclose(ml, ol, rtol=1e-4)
+    np.testing.assert_allclose(mg, og, rtol=1e-3)
+    assert len(mp) == len(op) == len(mm) == len(om)
+    for a, b in zip(mp, op):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-4)
+    for a, b in zip(mm, om):
+        np.testing.assert_allclose(a, b, rtol=0,
+                                   atol=1e-3 * float(np.abs(b).max()))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-32b", "xlstm-350m"])
+def test_float32_steps_on_a_1x4_card_mesh_match_one_device(cuda, arch):
+    """The same on a (1, 4) mesh, where "model" does not divide the heads
+    (qwen3-32b's 2 kv heads, xLSTM's 2) and the loss reads a quarter of
+    the head a rank: the projections replicated over "model" before the
+    per-head view (``shardctx.split_heads``), the vocab blocks combined
+    over "model" (``shardctx.local_vocab``), on the card's torch."""
+    from repro_torch.launch.mesh import run_world
+
+    ml, mg, mp, mm, _ = run_world(_card_mesh_rank, 4, arch, (1, 4),
+                                  device="cuda")[0]
+    ol, og, op, om, _ = _card_mesh_steps(arch, cuda)
     np.testing.assert_allclose(ml, ol, rtol=1e-4)
     np.testing.assert_allclose(mg, og, rtol=1e-3)
     assert len(mp) == len(op) == len(mm) == len(om)

@@ -219,10 +219,10 @@ def _chip_smoke(*args):
 
 def test_chip_smoke_cpu_rehearsal_runs_the_flow():
     """The chip script's series, compose, engine, serving, restore,
-    simulate, multi-device, LM, training and LM multi-device phases (every
-    served configuration's smoke model; the mesh on gloo CPU ranks) on the
-    CPU (plain kernels): it prints their lines, no result line, and exits
-    3."""
+    simulate, multi-device, LM, training, LM multi-device and dry-run
+    phases (every served configuration's smoke model; the mesh on gloo CPU
+    ranks; the dry-run on a fake world) on the CPU (plain kernels): it
+    prints their lines, no result line, and exits 3."""
     out = _chip_smoke("--cpu-rehearsal")
     assert out.returncode == 3, out.stderr
     lines = out.stdout.splitlines()
@@ -236,7 +236,7 @@ def test_chip_smoke_cpu_rehearsal_runs_the_flow():
         "lm_check", "lm_check xlstm-350m", "lm_check whisper-base",
         "train xlstm-350m", "train phi3.5-moe-42b", "train_check",
         "ssd_sharded", "compressed_psum", "train_mesh xlstm-350m",
-        "train_mesh_check"]
+        "train_mesh_check", "dryrun"]
     assert '"ok"' not in out.stdout
 
 
