@@ -193,6 +193,7 @@ def scan(
     pool=None,
     devices: Optional[int] = None,
     mesh=None,
+    stats: Optional[list] = None,
 ):
     """Inclusive prefix scan of ``xs`` with associative ``op``.
 
@@ -221,6 +222,12 @@ def scan(
     (default: the mesh's size, else ``torch.cuda.device_count()`` when the
     scan's tensors are on a CUDA device, else 1) reaches
     ``SHARDED_MIN_DEVICES``.
+
+    ``stats``: a list to which the element-domain ``worksteal`` and
+    ``hierarchical`` backends append what their run measured: a
+    :class:`~repro_torch.core.work_stealing.StealStats` or a
+    :class:`~repro_torch.core.engine.hierarchical.HierStats` (both report
+    ``task_seconds()``, ``failed_takes()`` and ``wait_time``).
 
     Backend-specific options: ``num_blocks``/``strategy`` (blocked),
     ``num_threads``/``stealing`` (worksteal), ``num_segments``/
@@ -256,7 +263,7 @@ def scan(
                 stealing=stealing, cross_steal=cross_steal,
                 element_costs=element_costs, workers=workers, seed=seed,
                 device_phase1=device_phase1, use_pallas=use_pallas,
-                pool=pool, devices=devices, mesh=mesh,
+                pool=pool, devices=devices, mesh=mesh, stats=stats,
             )
     return _scan_impl(
         op, xs, element_domain,
@@ -266,7 +273,7 @@ def scan(
         axis_size=axis_size, stealing=stealing, cross_steal=cross_steal,
         element_costs=element_costs, workers=workers, seed=seed,
         device_phase1=device_phase1, use_pallas=use_pallas, pool=pool,
-        devices=devices, mesh=mesh,
+        devices=devices, mesh=mesh, stats=stats,
     )
 
 
@@ -306,6 +313,7 @@ def _scan_impl(
     pool,
     devices,
     mesh,
+    stats,
 ):
     # --- collective: SPMD over a mesh axis; xs is this position's element.
     if backend == "collective":
@@ -422,8 +430,10 @@ def _scan_impl(
                                          "brent_kung", "sklansky",
                                          "sequential") else "dissemination"
         plan = get_plan(alg, t) if t > 1 else None
-        ys, _ = fn(op, plan, xs, num_threads=t, stealing=stealing, seed=seed,
-                   pool=pool)
+        ys, run_stats = fn(op, plan, xs, num_threads=t, stealing=stealing,
+                           seed=seed, pool=pool)
+        if stats is not None:
+            stats.append(run_stats)
         return ys
     if backend == "hierarchical":
         # Two-level reduce-then-scan; the plan covers the cross-segment phase.
@@ -446,7 +456,8 @@ def _scan_impl(
         ys, _ = fn(op, plan, xs, num_segments=s, num_threads=t,
                    stealing=stealing, cross_steal=cross_steal,
                    element_costs=element_costs, use_pallas=use_pallas,
-                   seed=seed, device_phase1=device_phase1, pool=pool)
+                   seed=seed, device_phase1=device_phase1, pool=pool,
+                   stats=stats)
         return ys
     if backend == "pallas" and num_blocks is not None and num_blocks > 1:
         plan = get_plan("ladner_fischer" if algorithm == "blelloch"

@@ -186,16 +186,16 @@ def exec_worksteal(
 ) -> Tuple[list, Any]:
     """Threaded reduce-then-scan (Algorithm 1); ``plan`` is the phase-2
     circuit over the thread partials (its width == num_threads); ``pool``
-    the scheduler phases 1/3 run on (shared process pool by default)."""
+    the scheduler phases 1/3 run on (shared process pool by default).
+    Returns the scan and its :class:`~repro_torch.core.work_stealing.StealStats`."""
     from ..work_stealing import work_stealing_scan
 
     t = num_threads if num_threads is not None else plan.n
-    ys, _stats = work_stealing_scan(
+    return work_stealing_scan(
         op, list(xs), t,
         plan=plan if plan is not None and plan.n == t else None,
         stealing=stealing, seed=seed, pool=pool,
     )
-    return ys, None
 
 
 # ---------------------------------------------------------------------------

@@ -62,6 +62,23 @@ class HierStats:
     phase2_rounds: int = 0                      # cross-segment comm rounds: the
     # inclusive plan's rounds + 1 for the exclusive shift a distributed
     # lowering would pay (compare with the sharded backend's exscan count)
+    # Thread-seconds of the work outside the segments' stealing tasks:
+    # folds of segments too short to steal, the partials' scans, phase 2
+    # with its seed combines, and phase 3's tasks.
+    task_time: float = 0.0
+    # Thread-seconds the scan's threads (one a phase-3 interval) held no
+    # task, phase 1's start to phase 3's end.
+    wait_time: float = 0.0
+
+    def task_seconds(self) -> float:
+        """Thread-seconds the scan's work held (every operator application
+        runs inside them)."""
+        return self.task_time + sum(
+            s.task_seconds() for s in self.steal_stats if s is not None)
+
+    def failed_takes(self) -> int:
+        """Steal takes lost to a neighbour, over all segments."""
+        return sum(s.failed_takes() for s in self.steal_stats if s is not None)
 
     def imbalance(self) -> float:
         """Max relative busy-time imbalance across segments (paper Fig. 5b)."""
@@ -106,10 +123,12 @@ def _exec_hier_element(
     cross_steal: Optional[bool] = None,
     element_costs: Optional[Sequence[float]] = None,
     pool=None,
+    stats: Optional[list] = None,
 ) -> Tuple[list, Any]:
     from ..work_stealing import (
         _Gap,
         cross_start_positions,
+        held,
         rebalance_boundaries,
         static_reduce,
         stealing_reduce,
@@ -137,6 +156,7 @@ def _exec_hier_element(
         bounds = segment_bounds(n, s)
     phase: Dict[str, float] = {}
     ops_count = 0
+    spent: List[float] = []   # HierStats.task_time's parts
 
     # Cross-segment stealing (default on): finished segments drain shared
     # boundary gaps into still-running neighbours.  Needs stealing, >1
@@ -159,18 +179,25 @@ def _exec_hier_element(
             intervals = [(lo + a, lo + b) for a, b in st.boundaries]
             reduce_ops = st.total_ops
         else:
-            acc = seg[0]
-            for item in seg[1:]:
-                acc = op(acc, item)
+            with held("repro.steal.task", spent):
+                acc = seg[0]
+                for item in seg[1:]:
+                    acc = op(acc, item)
             partials, st, intervals = [acc], None, [(lo, hi)]
             reduce_ops = ln - 1
         # Inclusive scan over the thread partials (T is small) — its last
         # entry is the segment total for the global phase, its prefixes seed
         # the per-interval applies in phase 3.
+        return (_partial_scan(partials), intervals, st,
+                reduce_ops + len(partials) - 1)
+
+    def _partial_scan(partials):
         pscan = [partials[0]]
-        for p in partials[1:]:
-            pscan.append(op(pscan[-1], p))
-        return pscan, intervals, st, reduce_ops + len(pscan) - 1
+        if len(partials) > 1:
+            with held("repro.steal.task", spent):
+                for p in partials[1:]:
+                    pscan.append(op(pscan[-1], p))
+        return pscan
 
     if cross:
         # Shared inter-segment gaps between the adjacent edge workers of
@@ -202,12 +229,10 @@ def _exec_hier_element(
                 record=seg_tel[i].record,
                 pool=pool,
             )
-            pscan = [partials[0]]
-            for p in partials[1:]:
-                pscan.append(op(pscan[-1], p))
-            return pscan, st.boundaries, st, st.total_ops + len(pscan) - 1
+            return (_partial_scan(partials), st.boundaries, st,
+                    st.total_ops + len(partials) - 1)
 
-    t0 = time.perf_counter()
+    t0 = t_start = time.perf_counter()
     if cross:
         seg_results = pool.run_tasks(
             [functools.partial(reduce_segment_cross, i) for i in range(s)],
@@ -226,46 +251,50 @@ def _exec_hier_element(
     for _pscan, _intervals, _st, seg_ops in seg_results:
         ops_count += seg_ops
 
-    # --- phase 2: small cross-segment scan over the S totals.
-    t0 = time.perf_counter()
-    totals = [r[0][-1] for r in seg_results]
-    if s > 1:
-        if plan is None or plan.n != s or plan.exclusive:
-            plan = get_plan("ladner_fischer", s)
-        scanned, _ = exec_element(op, plan, totals)
-        ops_count += plan.work()
-    else:
-        scanned = totals
-    total = scanned[-1]
-    phase["global"] = time.perf_counter() - t0
-
-    # --- phase 3: seeded per-interval applies, all intervals concurrent.
+    # --- phase 2: small cross-segment scan over the S totals, then the
+    # seeds of phase 3's intervals.
     t0 = time.perf_counter()
     out: List[Any] = [None] * n
     jobs: List[Tuple[int, int, Any]] = []
-    for i, (pscan, intervals, _st, _ops) in enumerate(seg_results):
-        if i == 0:
-            base = seed
-        elif seed is None:
-            base = scanned[i - 1]
+    with held("repro.scan.combine", spent):
+        totals = [r[0][-1] for r in seg_results]
+        if s > 1:
+            if plan is None or plan.n != s or plan.exclusive:
+                plan = get_plan("ladner_fischer", s)
+            scanned, _ = exec_element(op, plan, totals)
+            ops_count += plan.work()
         else:
-            base = op(seed, scanned[i - 1])
-            ops_count += 1  # seed combines execute the operator: count them
-        for j, (lo, hi) in enumerate(intervals):
-            if j == 0:
-                sj = base
-            else:
-                sj = pscan[j - 1] if base is None else op(base, pscan[j - 1])
-                ops_count += 0 if base is None else 1
-            jobs.append((lo, hi, sj))
+            scanned = totals
+        total = scanned[-1]
+        phase["global"] = time.perf_counter() - t0
 
+        t0 = time.perf_counter()
+        for i, (pscan, intervals, _st, _ops) in enumerate(seg_results):
+            if i == 0:
+                base = seed
+            elif seed is None:
+                base = scanned[i - 1]
+            else:
+                base = op(seed, scanned[i - 1])
+                ops_count += 1  # seed combines execute the operator
+            for j, (lo, hi) in enumerate(intervals):
+                if j == 0:
+                    sj = base
+                else:
+                    sj = (pscan[j - 1] if base is None
+                          else op(base, pscan[j - 1]))
+                    ops_count += 0 if base is None else 1
+                jobs.append((lo, hi, sj))
+
+    # --- phase 3: seeded per-interval applies, all intervals concurrent.
     def apply_interval(job):
         lo, hi, acc = job
         k = 0
-        for idx in range(lo, hi + 1):
-            acc = xs[idx] if acc is None else op(acc, xs[idx])
-            out[idx] = acc
-            k += 1
+        with held("repro.scan.apply", spent):
+            for idx in range(lo, hi + 1):
+                acc = xs[idx] if acc is None else op(acc, xs[idx])
+                out[idx] = acc
+                k += 1
         return k - (1 if job[2] is None else 0)
 
     if len(jobs) == 1:
@@ -277,7 +306,8 @@ def _exec_hier_element(
                 label="hier_apply",
             )
         )
-    phase["apply"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    phase["apply"] = t1 - t0
 
     last_stats = HierStats(
         num_segments=s,
@@ -294,7 +324,11 @@ def _exec_hier_element(
         ] if cross else [0] * s,
         rebalanced=rebalanced,
         phase2_rounds=(plan.num_rounds() + 1) if s > 1 else 0,
+        task_time=sum(spent),
     )
+    last_stats.wait_time = len(jobs) * (t1 - t_start) - last_stats.task_seconds()
+    if stats is not None:
+        stats.append(last_stats)
     return out, total
 
 
@@ -311,6 +345,7 @@ def _exec_hier_device(
     num_segments: int,
     seed: Any,
     use_pallas: Optional[bool],
+    stats: Optional[list] = None,
 ) -> Tuple[list, Any]:
     """Device-resident phase 1 for batchable operators.
 
@@ -368,6 +403,8 @@ def _exec_hier_device(
         device_phase1=True,
         phase2_rounds=(plan.num_rounds() + 1) if plan is not None else 0,
     )
+    if stats is not None:
+        stats.append(last_stats)
     return out, total
 
 
@@ -466,6 +503,7 @@ def exec_hierarchical(
     use_pallas: Optional[bool] = None,
     device_phase1: Optional[bool] = None,
     pool=None,
+    stats: Optional[list] = None,
     **_,
 ) -> Tuple[Any, Any]:
     """Two-level reduce-then-scan; ``plan`` covers the cross-segment phase.
@@ -482,7 +520,8 @@ def exec_hierarchical(
     the array path's local phases through the tile kernels (default: the
     tensors lie on CUDA and the op has a kernel form).  ``pool`` is the
     scheduler segment reduces and interval applies run on (element domain;
-    the process-wide shared pool by default).
+    the process-wide shared pool by default).  ``stats``: a list the
+    element-domain execution appends its :class:`HierStats` to.
     """
     s = num_segments if num_segments is not None else (plan.n if plan else 1)
     if isinstance(xs, list):
@@ -494,6 +533,7 @@ def exec_hierarchical(
                 return _exec_hier_device(
                     op, xs, stacked,
                     num_segments=s, seed=seed, use_pallas=use_pallas,
+                    stats=stats,
                 )
             # Elements don't stack (opaque payloads): threads still work.
         return _exec_hier_element(
@@ -507,6 +547,7 @@ def exec_hierarchical(
             cross_steal=cross_steal,
             element_costs=element_costs,
             pool=pool,
+            stats=stats,
         )
     if seed is not None:
         raise NotImplementedError(

@@ -33,7 +33,6 @@ class OpTelemetry:
     calls: int = 0
     total_time: float = 0.0
     max_time: float = 0.0
-    min_time: float = float("inf")
     ema_time: Optional[float] = None
     # Trace/JIT-compile time, kept strictly out of the per-call rate
     # statistics: the first application after process start used to fold
@@ -57,7 +56,6 @@ class OpTelemetry:
             self.calls += 1
             self.total_time += seconds
             self.max_time = max(self.max_time, seconds)
-            self.min_time = min(self.min_time, seconds)
             self.ema_time = (
                 seconds
                 if self.ema_time is None
@@ -94,7 +92,6 @@ class OpTelemetry:
             self.calls = 0
             self.total_time = 0.0
             self.max_time = 0.0
-            self.min_time = float("inf")
             self.ema_time = None
             self.compile_calls = 0
             self.compile_time = 0.0

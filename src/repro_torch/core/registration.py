@@ -27,6 +27,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.runtime.tracing import span
+
 from ._tree import tree_index
 from .deformation import (
     Deformation,
@@ -54,6 +56,8 @@ class RegResult(NamedTuple):
     deformation: Deformation
     distance: torch.Tensor       # final 1 - NCC
     iterations: torch.Tensor     # total gradient iterations (cost proxy)
+    steps: int = 0               # batched gradient steps run, over all levels
+                                 # (the host's count: the slowest lane's)
 
 
 def _minimize_level(
@@ -61,14 +65,17 @@ def _minimize_level(
     tmpl: torch.Tensor,
     init: Deformation,
     cfg: RegistrationConfig,
-) -> Tuple[Deformation, torch.Tensor, torch.Tensor]:
+) -> Tuple[Deformation, torch.Tensor, torch.Tensor, int]:
     """Gradient flow on one pyramid level with data-dependent stopping,
     over a batch of pairs: ``ref``/``tmpl`` ``(B, h, w)``, ``init`` with
-    ``angle (B,)`` and ``shift (B, 2)``.
+    ``angle (B,)`` and ``shift (B, 2)``.  Returns the deformations, the
+    final distances, each lane's iterations and the batched steps run.
 
     The loop is *per-lane frozen*: it runs while any lane is active, and
     ``active`` masks every update, so each lane follows exactly its solo
     trajectory and counts its own iterations whatever batch it runs in.
+    The batch pays for every step its slowest lane takes: ``steps`` times
+    ``B`` lane-steps, of which the lanes' iterations are the useful ones.
 
     Each step's loss at the new point is computed with its graph kept, and
     the next step differentiates that graph, where the reference evaluates
@@ -91,27 +98,32 @@ def _minimize_level(
         cur = loss_g.detach()
         prev = cur + 1.0
         it = torch.zeros(cur.shape, dtype=torch.int32, device=cur.device)
-        while True:
-            act = (it < cfg.max_iters) & ((prev - cur).abs() > cfg.tol)
-            if not bool(act.any()):
-                break
-            g_angle, g_shift = torch.autograd.grad(
-                loss_g.sum(), [leaves["angle"], leaves["shift"]]
-            )
-            d_new = {
-                "angle": d["angle"] - ang_step * g_angle,
-                "shift": d["shift"] - cfg.lr_shift * g_shift,
-            }
-            leaves, loss_g = loss_with_graph(d_new)
-            new = loss_g.detach()
-            d = {
-                "angle": torch.where(act, d_new["angle"], d["angle"]),
-                "shift": torch.where(act[:, None], d_new["shift"], d["shift"]),
-            }
-            prev = torch.where(act, cur, prev)
-            cur = torch.where(act, new, cur)
-            it = it + act.to(torch.int32)
-    return d, cur, it
+        steps = 0
+        act = (it < cfg.max_iters) & ((prev - cur).abs() > cfg.tol)
+        more = bool(act.any())
+        while more:
+            with span("repro.fnA.step"):
+                g_angle, g_shift = torch.autograd.grad(
+                    loss_g.sum(), [leaves["angle"], leaves["shift"]]
+                )
+                d_new = {
+                    "angle": d["angle"] - ang_step * g_angle,
+                    "shift": d["shift"] - cfg.lr_shift * g_shift,
+                }
+                leaves, loss_g = loss_with_graph(d_new)
+                new = loss_g.detach()
+                d = {
+                    "angle": torch.where(act, d_new["angle"], d["angle"]),
+                    "shift": torch.where(act[:, None], d_new["shift"],
+                                         d["shift"]),
+                }
+                prev = torch.where(act, cur, prev)
+                cur = torch.where(act, new, cur)
+                it = it + act.to(torch.int32)
+                act = (it < cfg.max_iters) & ((prev - cur).abs() > cfg.tol)
+                more = bool(act.any())
+            steps += 1
+    return d, cur, it, steps
 
 
 def _pyramid(img: torch.Tensor, levels: int):
@@ -145,15 +157,18 @@ def register_pair(
     scale = 2.0 ** (cfg.levels - 1)
     d = {"angle": init["angle"], "shift": init["shift"] / scale}
     total_iters = torch.zeros((b,), dtype=torch.int32, device=ref.device)
+    total_steps = 0
     dist = torch.zeros((b,), device=ref.device)
     for lvl, (r, t) in enumerate(zip(refs, tmps)):
-        d, dist, iters = _minimize_level(r, t, d, cfg)
+        d, dist, iters, steps = _minimize_level(r, t, d, cfg)
         total_iters = total_iters + iters
+        total_steps += steps
         if lvl != len(refs) - 1:
             d = {"angle": d["angle"], "shift": d["shift"] * 2.0}
     if single:
-        return RegResult(tree_index(d, 0), dist[0], total_iters[0])
-    return RegResult(d, dist, total_iters)
+        return RegResult(tree_index(d, 0), dist[0], total_iters[0],
+                         total_steps)
+    return RegResult(d, dist, total_iters, total_steps)
 
 
 # ---------------------------------------------------------------------------
@@ -186,8 +201,6 @@ class SeriesRegistrar:
         self.frames = frames
         self.cfg = cfg
         self.refine = refine
-        self.op_calls = 0
-        self.total_iters = 0
 
     # -- preprocessing: function A on consecutive pairs (massively parallel).
     def preprocess(self) -> list:
@@ -197,7 +210,6 @@ class SeriesRegistrar:
             res = register_pair(
                 self.frames[i], self.frames[i + 1], None, self.cfg
             )
-            self.total_iters += int(res.iterations)
             elems.append(RegElement(res.deformation, i, i + 1))
         return elems
 
@@ -220,8 +232,6 @@ class SeriesRegistrar:
         res = register_pair(
             self.frames[a.i], self.frames[b.k], guess, self.cfg
         )
-        self.op_calls += 1
-        self.total_iters += int(res.iterations)
         return RegElement(res.deformation, a.i, b.k)
 
     # -- plain sequential series registration (the paper's baseline).
@@ -335,8 +345,18 @@ class RegistrationOperator:
         self.fused = fused_default(
             getattr(registrar.frames, "device", None), (h, w), tile, fused
         )
+        # This adapter's applications (a session makes one a feed):
+        # guess checks that skipped or refined, and the refinements'
+        # gradient steps (one lane: steps are iterations) and
+        # thread-seconds.
         self.skipped = 0
         self.refined = 0
+        self.refine_iters = 0
+        self.refine_s = 0.0
+        # What ``engine.scan(stats=...)`` measured of the scans run with
+        # this adapter (``StealStats``/``HierStats``).
+        self.scan_stats: list = []
+        self._op_base = self._op_total()
         self._count_lock = threading.Lock()
         self._elem_prior: Optional[list] = None
         self._elem_obs: dict = {}
@@ -358,6 +378,16 @@ class RegistrationOperator:
         the function-A preprocessing stage, whose per-pair cost is the same
         minimiser on the same frames)."""
         self.telemetry.record(seconds_per_call)
+        self._op_base = self._op_total()
+
+    def _op_total(self) -> float:
+        return self.telemetry.total_time + self.telemetry.compile_time
+
+    @property
+    def op_s(self) -> float:
+        """Thread-seconds of this adapter's applications, read from its
+        telemetry (which no other adapter may record into meanwhile)."""
+        return self._op_total() - self._op_base
 
     def prime_elements(self, costs) -> None:
         """Seed *per-element* relative cost priors (any unit — e.g. the
@@ -420,20 +450,26 @@ class RegistrationOperator:
                 raise ValueError(
                     f"non-adjacent elements {a.i, a.k} . {b.i, b.k}"
                 )
-            guess = compose(a.deformation, b.deformation)
-            if not reg.refine:
-                return RegElement(guess, a.i, b.k)
-            if self.skip_tol is not None:
-                dist = self._guess_distance(
-                    reg.frames[a.i], reg.frames[b.k], guess
-                )
-                if float(dist) < self.skip_tol:
-                    with self._count_lock:
-                        self.skipped += 1
+            with span("repro.op.check"):
+                guess = compose(a.deformation, b.deformation)
+                if not reg.refine:
                     return RegElement(guess, a.i, b.k)
-            res = register_pair(reg.frames[a.i], reg.frames[b.k], guess, reg.cfg)
+                if self.skip_tol is not None:
+                    dist = self._guess_distance(
+                        reg.frames[a.i], reg.frames[b.k], guess
+                    )
+                    if float(dist) < self.skip_tol:
+                        with self._count_lock:
+                            self.skipped += 1
+                        return RegElement(guess, a.i, b.k)
+            t_refine = time.perf_counter()
+            with span("repro.op.refine"):
+                res = register_pair(reg.frames[a.i], reg.frames[b.k], guess,
+                                    reg.cfg)
             with self._count_lock:
                 self.refined += 1
+                self.refine_iters += res.steps
+                self.refine_s += time.perf_counter() - t_refine
             return RegElement(res.deformation, a.i, b.k)
         finally:
             dt = time.perf_counter() - t0

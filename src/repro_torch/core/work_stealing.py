@@ -40,6 +40,7 @@ rebalancing, ``runtime/straggler.py``) are not ported yet.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import threading
@@ -55,6 +56,7 @@ from repro_torch.analysis.invariants import (
 )
 from repro_torch.analysis.sync import invariants_enabled, sync_point
 from repro_torch.runtime.scheduler import get_default_pool
+from repro_torch.runtime.tracing import span, timed
 
 from .engine.backends import exec_element
 from .engine.plan import ExecutionPlan, get_plan
@@ -121,6 +123,8 @@ class ThreadStats:
     finish_time: float = 0.0
     cross_steals: int = 0   # claims taken from a shared inter-segment gap
     failed_takes: int = 0   # lost take races (each followed by a backoff)
+    task_time: float = 0.0  # seconds the thread's phase-1 task held, start
+                            # to end (``busy_time`` is the operator's share)
 
     def rate(self) -> float:
         """Observed seconds per operator application (t_I in the paper)."""
@@ -135,6 +139,22 @@ class StealStats:
     makespan: float
     total_ops: int
     boundaries: List[Tuple[int, int]]  # inclusive [pl, pr] per thread
+    # Thread-seconds of the scan's work after phase 1: phase 2 and the
+    # seed combines on the calling thread, and phase 3's pool tasks.
+    scan_time: float = 0.0
+    # Thread-seconds the scan's threads held no task, phase 1's start to
+    # phase 3's end: between and after phase-1 tasks, through phase 2
+    # (the other threads), in phase 3 (0 for a reduce run on its own).
+    wait_time: float = 0.0
+
+    def task_seconds(self) -> float:
+        """Thread-seconds the scan's work held: phase 1's tasks, then
+        phases 2 and 3 (every operator application runs inside them)."""
+        return sum(t.task_time for t in self.threads) + self.scan_time
+
+    def failed_takes(self) -> int:
+        """Steal takes lost to a neighbour, over all threads."""
+        return sum(t.failed_takes for t in self.threads)
 
     def imbalance(self) -> float:
         """Relative difference between max and mean busy time (paper Fig. 5b)."""
@@ -145,6 +165,15 @@ class StealStats:
     def cross_steals(self) -> int:
         """Elements this reduce claimed from shared inter-segment gaps."""
         return sum(t.cross_steals for t in self.threads)
+
+
+@contextlib.contextmanager
+def held(name: str, sink: List[float]):
+    """Run a stretch of a scan's work under the span ``name`` and append
+    the thread-seconds it held to ``sink``."""
+    with timed(name) as t:
+        yield
+    sink.append(t.seconds)
 
 
 def _steal_direction(
@@ -285,7 +314,7 @@ def stealing_reduce(
         r = fn() if callable(fn) else fn
         return 0.0 if r is None else float(r)
 
-    def worker(tid: int) -> None:
+    def _steal(tid: int) -> None:
         st = stats[tid]
         left = gaps[tid]
         right = gaps[tid + 1]
@@ -325,9 +354,9 @@ def stealing_reduce(
                 # won the race is still mid-application.
                 st.failed_takes += 1
                 spins += 1
-                time.sleep(
-                    0.0 if spins <= 2 else min(1e-3, 2e-5 * (1 << min(spins, 6)))
-                )
+                with span("repro.steal.backoff"):
+                    time.sleep(0.0 if spins <= 2
+                               else min(1e-3, 2e-5 * (1 << min(spins, 6))))
                 continue
             spins = 0
             b = clock()
@@ -352,6 +381,12 @@ def stealing_reduce(
                 st.cross_steals += 1
         results[tid] = res
         st.finish_time = clock() - t0
+
+    def worker(tid: int) -> None:
+        t_task = time.perf_counter()
+        with span("repro.steal.task"):
+            _steal(tid)
+        stats[tid].task_time = time.perf_counter() - t_task
 
     if pool is None:
         pool = get_default_pool()
@@ -394,16 +429,19 @@ def static_reduce(
     t0 = clock()
 
     def worker(tid: int) -> None:
+        t_task = time.perf_counter()
         lo, hi = bounds[tid]
         st = stats[tid]
-        b = clock()
-        res = items[lo]
-        for i in range(lo + 1, hi + 1):
-            res = op(res, items[i])
-            st.ops += 1
-        st.busy_time += clock() - b
+        with span("repro.steal.task"):
+            b = clock()
+            res = items[lo]
+            for i in range(lo + 1, hi + 1):
+                res = op(res, items[i])
+                st.ops += 1
+            st.busy_time += clock() - b
         results[tid] = res
         st.finish_time = clock() - t0
+        st.task_time = time.perf_counter() - t_task
 
     if pool is None:
         pool = get_default_pool()
@@ -446,14 +484,20 @@ def work_stealing_scan(
     run on (process-wide shared pool by default).
     """
     n = len(items)
+    t_start = time.perf_counter()
+    # Thread-seconds of phases 2 and 3 (a single thread's chain counts as
+    # phase 3): what StealStats.scan_time reports.
+    after: List[float] = []
     if num_threads == 1:
         out = []
         acc = seed
-        for x in items:
-            acc = x if acc is None else op(acc, x)
-            out.append(acc)
+        with held("repro.scan.apply", after):
+            for x in items:
+                acc = x if acc is None else op(acc, x)
+                out.append(acc)
         st = ThreadStats(ops=n - (0 if seed is not None else 1), pl=0, pr=n - 1)
-        return out, StealStats([st], 0.0, st.ops, [(0, n - 1)])
+        return out, StealStats([st], 0.0, st.ops, [(0, n - 1)],
+                               scan_time=sum(after))
 
     if pool is None:
         pool = get_default_pool()
@@ -470,25 +514,27 @@ def work_stealing_scan(
     if plan is None or plan.n != len(partials):
         plan = get_plan(algorithm, len(partials))
     sync_point("phase2.scan")
-    scanned, _ = exec_element(op, plan, partials)
-    if checking:
-        record_events(events, "p2_done", -1)
-    stats.total_ops += plan.work()
+    bounds = stats.boundaries
+    seeds: List[Any] = []
+    with held("repro.scan.combine", after):
+        scanned, _ = exec_element(op, plan, partials)
+        if checking:
+            record_events(events, "p2_done", -1)
+        stats.total_ops += plan.work()
+        for i in range(len(bounds)):
+            if i == 0:
+                seeds.append(seed)
+            elif seed is None:
+                seeds.append(scanned[i - 1])
+            else:
+                # Seed combines execute the operator — they count toward
+                # the total-work claim (~3N for a seeded full scan) like
+                # any other.
+                seeds.append(op(seed, scanned[i - 1]))
+                stats.total_ops += 1
 
     # Phase 3: seeded per-interval scans (parallel threads).
     out: List[Any] = [None] * n
-    bounds = stats.boundaries
-    seeds: List[Any] = []
-    for i in range(len(bounds)):
-        if i == 0:
-            seeds.append(seed)
-        elif seed is None:
-            seeds.append(scanned[i - 1])
-        else:
-            # Seed combines execute the operator — they count toward the
-            # total-work claim (~3N for a seeded full scan) like any other.
-            seeds.append(op(seed, scanned[i - 1]))
-            stats.total_ops += 1
 
     def apply_worker(tid: int) -> None:
         sync_point("phase3.apply")
@@ -497,9 +543,10 @@ def work_stealing_scan(
                 record_events(events, "p3_start", 0)
         lo, hi = bounds[tid]
         acc = seeds[tid]
-        for j in range(lo, hi + 1):
-            acc = items[j] if acc is None else op(acc, items[j])
-            out[j] = acc
+        with held("repro.scan.apply", after):
+            for j in range(lo, hi + 1):
+                acc = items[j] if acc is None else op(acc, items[j])
+                out[j] = acc
 
     pool.run_tasks(
         [functools.partial(apply_worker, i) for i in range(len(bounds))],
@@ -514,6 +561,9 @@ def work_stealing_scan(
         (hi - lo + 1) - (1 if s is None else 0)
         for (lo, hi), s in zip(bounds, seeds)
     )
+    stats.scan_time = sum(after)
+    stats.wait_time = (len(bounds) * (time.perf_counter() - t_start)
+                       - stats.task_seconds())
     return out, stats
 
 

@@ -55,6 +55,7 @@ from typing import Any, Callable, List, Optional, Sequence
 
 from repro_torch.analysis.invariants import check_group_settled
 from repro_torch.analysis.sync import invariants_enabled, sync_point
+from repro_torch.runtime.tracing import span
 
 
 class _TaskGroup:
@@ -276,7 +277,8 @@ class WorkerPool:
                     self._claimed += 1
                 else:
                     # Everything is claimed but still running on workers.
-                    self._cond.wait(timeout=0.1)
+                    with span("repro.pool.wait"):
+                        self._cond.wait(timeout=0.1)
                     continue
             err = result = None
             # Helper-claimed tasks run in the group's lane too: a nested

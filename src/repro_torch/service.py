@@ -87,6 +87,7 @@ from repro_torch.core.registration import (
 )
 from repro_torch.runtime.compile_cache import get_compile_cache, set_cache_dir
 from repro_torch.runtime.scheduler import get_default_pool
+from repro_torch.runtime.tracing import span, timed
 
 #: Function A runs a chunk's pairs in sub-batches of at most this many.  At
 #: 1920x1920 f32 one pair's autograd graph holds a few hundred MB, so 8
@@ -97,19 +98,24 @@ PAIR_SUB_BATCH = 8
 def _register_pairs(pair_fn, cfg: RegistrationConfig, refs: torch.Tensor,
                     tmps: torch.Tensor):
     """Function A on all pairs, in sub-batches of ``PAIR_SUB_BATCH``:
-    ``(deformations, iterations)`` batched over the pairs."""
+    ``(deformations, iterations, steps, lane_steps)``, the first two
+    batched over the pairs; ``steps`` counts the batched gradient steps of
+    every sub-batch and level, ``lane_steps`` each step times its
+    sub-batch's width (the lane-steps paid for)."""
     n = int(refs.shape[0])
-    outs = [
-        pair_fn(refs[lo:lo + PAIR_SUB_BATCH], tmps[lo:lo + PAIR_SUB_BATCH],
-                None, cfg)
-        for lo in range(0, n, PAIR_SUB_BATCH)
-    ]
+    outs = []
+    for lo in range(0, n, PAIR_SUB_BATCH):
+        with span("repro.fnA"):
+            outs.append(pair_fn(refs[lo:lo + PAIR_SUB_BATCH],
+                                tmps[lo:lo + PAIR_SUB_BATCH], None, cfg))
     defs = {
         k: torch.cat([o.deformation[k] for o in outs], dim=0)
         for k in outs[0].deformation
     }
     iters = torch.cat([o.iterations for o in outs], dim=0)
-    return defs, iters
+    steps = sum(o.steps for o in outs)
+    lane_steps = sum(o.steps * int(o.iterations.shape[0]) for o in outs)
+    return defs, iters, steps, lane_steps
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,7 +184,8 @@ class SeriesResult:
     compile_cache: Optional[Dict[str, float]] = None  # session hit/miss/secs
     # Added in the port: one record per feed that scanned elements — its
     # element count, backend, guess checks skipped/refined and scan seconds
-    # (``backend`` above is only the last feed's).
+    # (``backend`` above is only the last feed's), and the feed's counters
+    # of function A, operator B and the scan's tasks (``_ChunkSummary``).
     feeds: List[Dict[str, Any]] = dataclasses.field(default_factory=list)
 
     @property
@@ -301,7 +308,10 @@ class _FrameStore:
 
 @dataclasses.dataclass
 class _ChunkSummary:
-    """Retained per-feed reduce summary (recovery / introspection)."""
+    """Retained per-feed reduce summary (recovery / introspection).
+
+    Every field after ``ops`` defaults, so that snapshots written before a
+    field existed restore."""
 
     first_elem: int          # global index of the first element folded in
     n_elems: int
@@ -310,6 +320,32 @@ class _ChunkSummary:
     backend: str = "none"    # backend the feed's scan ran on
     skipped: int = 0         # guess checks that skipped refinement
     refined: int = 0         # operator applications that refined
+    # Function A on the feed's pairs: its ``preprocess`` seconds, the
+    # lanes' iterations, the batched gradient steps and the lane-steps
+    # they paid for (steps times sub-batch width).
+    fnA_s: float = 0.0
+    pair_iters: int = 0
+    fnA_steps: int = 0
+    fnA_lane_steps: int = 0
+    # Operator B (zeros for a composing feed): the refinements' gradient
+    # steps and thread-seconds, and the thread-seconds of all operator
+    # applications.
+    refine_iters: int = 0
+    refine_s: float = 0.0
+    op_s: float = 0.0
+    # The scan's thread-seconds in its pool tasks (phases 1 and 3) and in
+    # phase 2; those its threads held no task; the steal takes lost to a
+    # neighbour.
+    task_s: float = 0.0
+    wait_s: float = 0.0
+    failed_takes: int = 0
+
+
+#: The per-feed record's keys (``SeriesResult.feeds``).
+_FEED_KEYS = tuple(f.name for f in dataclasses.fields(_ChunkSummary)
+                   if f.name not in ("first_elem", "ops"))
+#: The operator's counters a refining feed records, read by name.
+_OP_COUNTERS = ("skipped", "refined", "refine_iters", "refine_s", "op_s")
 
 
 #: The reference's ``_ChunkSummary`` fields: a snapshot's ``summaries`` hold
@@ -446,13 +482,13 @@ class SeriesSession:
         ``(n, H, W)`` tensor or array; it is moved to the session's device.
         """
         self._check_open()
-        with self._feed_lock:
-            t0 = time.perf_counter()
-            if not isinstance(chunk, torch.Tensor):
-                chunk = torch.from_numpy(np.array(chunk, dtype=np.float32))
-            chunk = chunk.to(dtype=torch.float32, device=self.device)
-            self._sync()
-            self._timings["ingest"] += time.perf_counter() - t0
+        with self._feed_lock, span("repro.feed"):
+            with timed("repro.feed.ingest") as stage:
+                if not isinstance(chunk, torch.Tensor):
+                    chunk = torch.from_numpy(np.array(chunk, dtype=np.float32))
+                chunk = chunk.to(dtype=torch.float32, device=self.device)
+                self._sync()
+            self._timings["ingest"] += stage.seconds
             if chunk.shape[0] == 0:
                 return self
             t0 = time.perf_counter()
@@ -464,17 +500,20 @@ class SeriesSession:
             tmps = chunk if prev_last is not None else chunk[1:]
             new_elems: List[RegElement] = []
             compile_before = self._compile["compile_s"]
+            pair_iters = steps = lane_steps = 0
             if refs.shape[0]:
                 launch = self._pair_launcher(int(refs.shape[0]),
                                              tuple(chunk.shape[1:]))
-                defs, iters = launch(refs, tmps)
+                defs, iters, steps, lane_steps = launch(refs, tmps)
                 self._sync()
                 first = self._store.n - 1 if self._store.n else 0
                 new_elems = [
                     RegElement(tree_index(defs, i), first + i, first + i + 1)
                     for i in range(int(refs.shape[0]))
                 ]
-                self._pair_iters.extend(int(v) for v in iters.tolist())
+                iters = [int(v) for v in iters.tolist()]
+                pair_iters = sum(iters)
+                self._pair_iters.extend(iters)
             self._store.append_chunk(chunk)
             dt = time.perf_counter() - t0
             # Build seconds are accounted to their own stage, out of
@@ -487,9 +526,13 @@ class SeriesSession:
                 self._pre_pairs += len(new_elems)
                 self._pre_seconds += dt
                 self._scan_suffix(new_elems)
+                fed = self._summaries[-1]
+                fed.fnA_s, fed.pair_iters = dt, pair_iters
+                fed.fnA_steps, fed.fnA_lane_steps = steps, lane_steps
             # O(1) residency: only frame 0 and the boundary frame can be
             # touched by future feeds.
-            self._store.evict({0, self._store.n - 1})
+            with span("repro.feed.evict"):
+                self._store.evict({0, self._store.n - 1})
         return self
 
     def _pair_launcher(self, n_pairs: int, hw: tuple):
@@ -509,12 +552,13 @@ class SeriesSession:
         pair_fn = register_pair
 
         def build():
-            if needs_ncc:
-                from repro_torch.kernels import warp_ncc
+            with span("repro.compile"):
+                if needs_ncc:
+                    from repro_torch.kernels import warp_ncc
 
-                warp_ncc.ensure_built()
-            return functools.partial(_register_pairs, pair_fn,
-                                     cfg.registration)
+                    warp_ncc.ensure_built()
+                return functools.partial(_register_pairs, pair_fn,
+                                         cfg.registration)
 
         return get_compile_cache().get_compiled(
             ("pair_batch", pair_fn, n_pairs, hw, "float32", cfg.registration,
@@ -525,52 +569,57 @@ class SeriesSession:
 
     def _scan_suffix(self, new_elems: List[RegElement]) -> None:
         cfg = self.cfg
-        t0 = time.perf_counter()
-        seed = self._elements[-1] if self._elements else None
-        first_elem = len(self._elements)
-        ops_before = self.telemetry.calls + self.telemetry.compile_calls
-        skipped = refined = 0
-        if not cfg.refine:
-            out = self._compose_suffix(new_elems, seed)
-            backend_used = cfg.backend or "vector"
-        else:
-            out, backend_used, op = self._refine_suffix(new_elems, seed)
-            skipped, refined = op.skipped, op.refined
-        self._sync()
-        self._backend_used = backend_used
-        self._elements.extend(out)
-        dt = time.perf_counter() - t0
-        self._timings["scan"] += dt
+        with timed("repro.scan") as stage:
+            seed = self._elements[-1] if self._elements else None
+            first_elem = len(self._elements)
+            ops_before = self.telemetry.calls + self.telemetry.compile_calls
+            stats, counts = (), {}
+            if not cfg.refine:
+                out = self._compose_suffix(new_elems, seed)
+                backend_used = cfg.backend or "vector"
+            else:
+                out, backend_used, op = self._refine_suffix(new_elems, seed)
+                # A stand-in for the operator may lack the counters.
+                counts = {k: getattr(op, k, 0) for k in _OP_COUNTERS}
+                stats = getattr(op, "scan_stats", ())
+            self._sync()
+            self._backend_used = backend_used
+            self._elements.extend(out)
+        self._timings["scan"] += stage.seconds
         self._summaries.append(_ChunkSummary(
             first_elem=first_elem,
             n_elems=len(new_elems),
-            seconds=dt,
+            seconds=stage.seconds,
             ops=self.telemetry.calls + self.telemetry.compile_calls
                 - ops_before,
             backend=backend_used,
-            skipped=skipped,
-            refined=refined,
+            task_s=sum(st.task_seconds() for st in stats),
+            wait_s=sum(st.wait_time for st in stats),
+            failed_takes=sum(st.failed_takes() for st in stats),
+            **counts,
         ))
 
     def _compose_suffix(self, new_elems, seed) -> List[RegElement]:
         """refine=False: exactly-associative pure composition, vectorized —
         one batched engine scan over the chunk, one broadcast seed fold."""
         cfg = self.cfg
-        batched = tree_stack([e.deformation for e in new_elems])
-        scanned = engine_scan(
-            compose_batched,
-            batched,
-            backend=cfg.backend,
-            algorithm=cfg.algorithm,
-            workers=cfg.workers,
-            devices=self._devices,
-            mesh=self._mesh,
-        )
-        if seed is not None:
-            sd = seed.deformation
-            scanned = compose_batched(
-                {k: v.expand_as(scanned[k]) for k, v in sd.items()}, scanned
+        with span("repro.scan.compose"):
+            batched = tree_stack([e.deformation for e in new_elems])
+            scanned = engine_scan(
+                compose_batched,
+                batched,
+                backend=cfg.backend,
+                algorithm=cfg.algorithm,
+                workers=cfg.workers,
+                devices=self._devices,
+                mesh=self._mesh,
             )
+            if seed is not None:
+                sd = seed.deformation
+                scanned = compose_batched(
+                    {k: v.expand_as(scanned[k]) for k, v in sd.items()},
+                    scanned,
+                )
         base_k = len(self._elements) + 1
         return [
             RegElement(tree_index(scanned, i), 0, base_k + i)
@@ -579,7 +628,9 @@ class SeriesSession:
 
     def _refine_suffix(self, new_elems, seed):
         """refine=True: function-B scan of the suffix, seeded with the
-        cumulative element, dispatched with pool awareness."""
+        cumulative element, dispatched with pool awareness.  Returns the
+        elements, the backend and the feed's operator, which holds the
+        feed's counters and the engine's stats of its scan."""
         cfg = self.cfg
         registrar = SeriesRegistrar(self._store, cfg.registration, refine=True)
         op = RegistrationOperator(
@@ -605,15 +656,16 @@ class SeriesSession:
         cross_steal = cfg.cross_steal
         with self.pool.tenant():
             if backend_used is None:
-                d = cost_dispatch(
-                    n_new, domain="element",
-                    op_cost=op.op_cost_estimate,
-                    workers=pool_aware_workers(self.pool, cfg.workers),
-                    op_imbalance=op.op_imbalance_estimate,
-                    pool_occupancy=self.pool.occupancy(),
-                    op_batchable=op_batchable_from(op),
-                    devices=self._devices,
-                )
+                with span("repro.scan.dispatch"):
+                    d = cost_dispatch(
+                        n_new, domain="element",
+                        op_cost=op.op_cost_estimate,
+                        workers=pool_aware_workers(self.pool, cfg.workers),
+                        op_imbalance=op.op_imbalance_estimate,
+                        pool_occupancy=self.pool.occupancy(),
+                        op_batchable=op_batchable_from(op),
+                        devices=self._devices,
+                    )
                 # Execute exactly what the dispatcher decided (its circuit,
                 # segment and thread counts — unless the config pins them).
                 backend_used = d.backend
@@ -639,11 +691,11 @@ class SeriesSession:
                 pool=self.pool,
                 devices=self._devices,
                 mesh=self._mesh,
+                stats=op.scan_stats,
             )
         if backend_used == "hierarchical":
-            from repro_torch.core.engine import hierarchical
-
-            self._scan_stats = hierarchical.last_stats
+            if op.scan_stats:  # a one-element feed runs no scan
+                self._scan_stats = op.scan_stats[-1]
         elif backend_used == "sharded":
             from repro_torch.core.engine import sharded
 
@@ -679,12 +731,8 @@ class SeriesSession:
             op_telemetry=self.telemetry.summary(),
             scan_stats=self._scan_stats,
             compile_cache=dict(self._compile),
-            feeds=[
-                {"n_elems": s.n_elems, "backend": s.backend,
-                 "skipped": s.skipped, "refined": s.refined,
-                 "seconds": s.seconds}
-                for s in self._summaries
-            ],
+            feeds=[{k: getattr(s, k) for k in _FEED_KEYS}
+                   for s in self._summaries],
         )
 
     def extend(self, new_frames) -> SeriesResult:

@@ -248,10 +248,14 @@ def test_checkpoint_restore_resumes_exactly(tmp_path, fake_a):
     s.feed(frames[:12])
     step = s.checkpoint()
     assert step == 12
+    written = s.summaries
     s.close()  # the "crash"
 
     r = service.SeriesSession.restore(str(tmp_path), cfg, device="cpu")
     assert r.n_frames == 12 and r.n_elements == 11
+    # Every per-feed field survives, the feed's counters too.
+    assert r.summaries == written
+    assert written[0].pair_iters == 3 * 11 and written[0].fnA_s > 0
     got = r.extend(frames[12:])
     r.close()
     np.testing.assert_allclose(
