@@ -135,6 +135,8 @@ kernels' launch counts zeroed just before it and read just after:
   staged a step.  The gaps are reported, not gated.
 
 Output, one line each: ``env``, ``build``, ``kernel warp_ncc``,
+``kernel ncc_grad`` (function A's step kernels at 8 x 1856 x 1920 and
+8 x 928 x 960 against the twin, their bound and the autograd step),
 ``kernel lookback_scan``, ``kernel tile_local_scan``, ``kernel tile_apply``,
 ``kernel fused_round`` (the per-round kernel and the whole-plan
 ``fused_plan`` kernel), ``kernel chunk_local``, ``kernel chunk_apply``
@@ -355,6 +357,108 @@ def check_warp_ncc(device, power_w: float) -> dict:
         "bound_ms_at_power_limit": max(bytes_ms, ops_ms)
         * FULL_POWER_W / min(power_w, FULL_POWER_W),
         "library_ms": None,
+    }
+
+
+#: Function A's batch on the main path (``service.PAIR_SUB_BATCH``) and the
+#: benchmark's frame, with its coarse pyramid level.
+NCC_GRAD_SHAPES = ((8, 1856, 1920), (8, 928, 960))
+
+
+def check_ncc_grad(device, power_w: float) -> dict:
+    """Function A's step kernels (``ncc_grad``: the sums pass and the
+    fold/update) at the main path's shapes: one sums pass against the plain
+    twin, then the pair's time alone (CUDA events over back-to-back launch
+    pairs, and replayed from a CUDA graph), a step as the descent runs it
+    (the pair and the host's ``bool(more)``), the twin's, and the
+    autograd step it replaces (``_minimize_level_plain``'s body), the
+    kernel and the autograd step timed in turns."""
+    from repro_torch.core.deformation import ncc_distance
+    from repro_torch.data.images import make_series
+    from repro_torch.kernels import ncc_grad as ng
+
+    rows = {}
+    for b, h, w in NCC_GRAD_SHAPES:
+        frames, _ = make_series(21, b + 1, size=max(h, w), noise=NOISE,
+                                device=device)
+        f = frames[:, :h, :w].contiguous()
+        del frames
+        ref, tmpl = f[:-1].contiguous(), f[1:].contiguous()
+        del f
+        angle = torch.linspace(-0.002, 0.002, b, device=device)
+        shift = torch.linspace(-3.0, 3.0, 2 * b, device=device).view(b, 2)
+        loss, grad, _ = ng.ncc_grad_cuda(ref, tmpl, angle, shift)
+        want_loss, want_grad = ng.ncc_grad_reference(ref, tmpl, angle, shift)
+        scale = want_grad.abs().amax(dim=0, keepdim=True)
+        err_loss = float((loss - want_loss).abs().max())
+        err_grad = float(((grad - want_grad).abs() / scale).max())
+        if not (err_loss <= 1e-6 and err_grad <= 1e-5):
+            raise AssertionError(f"ncc_grad {b}x{h}x{w}: loss off by "
+                                 f"{err_loss}, gradient by {err_grad} of "
+                                 "its scale")
+        # A descent that never stops (tol < 0) and barely moves.
+        desc = ng.Descent(ref, tmpl, angle, shift, lr_angle=1e-12,
+                          lr_shift=1e-9, tol=-1.0, max_iters=2**30)
+        desc.start()
+        fn, _ = ng._launcher()
+
+        def pair():
+            fn(ref.data_ptr(), tmpl.data_ptr(), desc._f.data_ptr(),
+               desc._scratch.data_ptr(), b, h, w, 1e-12, 1e-9, -1.0, 2**30,
+               0, torch.cuda.current_stream(device).cuda_stream)
+
+        leaves = {"angle": angle.clone().requires_grad_(True),
+                  "shift": shift.clone().requires_grad_(True)}
+
+        def autograd_step():
+            with torch.enable_grad():
+                loss_g = ncc_distance(ref, tmpl, leaves)
+                torch.autograd.grad(loss_g.sum(), [leaves["angle"],
+                                                   leaves["shift"]])
+                bool((loss_g.detach() > 2.0).any())
+
+        turns = {"ms": [], "autograd_step_ms": []}
+        for _ in range(2):
+            turns["ms"].append(_time_ms(pair))
+            turns["autograd_step_ms"].append(_time_ms(autograd_step,
+                                                      reps=10, warmup=2))
+        graph_ms = _graph_ms(pair)
+        t0 = time.perf_counter()
+        for _ in range(50):
+            desc.step()
+        step_ms = (time.perf_counter() - t0) * 1e3 / 50
+        plain_ms = _time_ms(
+            lambda: ng.ncc_grad_reference(ref, tmpl, angle, shift), reps=5,
+            warmup=1)
+        nbytes = 2 * b * h * w * 4
+        flops = 70 * b * h * w   # coordinates, taps, blend, gradients, sums
+        bound = _bound(nbytes, flops)
+        rows[f"{b}x{h}x{w}"] = {
+            "max_abs_err_loss": err_loss, "max_rel_err_grad": err_grad,
+            "ms": min(turns["ms"]), "graph_ms": graph_ms,
+            "step_ms": step_ms, "plain_ms": plain_ms,
+            "autograd_step_ms": min(turns["autograd_step_ms"]),
+            "turns": turns, **bound,
+            "bound_ms_at_power_limit": bound["bound_ms"] * FULL_POWER_W
+            / min(power_w, FULL_POWER_W),
+            "roofline_pct": 100.0 * bound["bound_ms"] / graph_ms,
+        }
+        del desc, ref, tmpl
+    main = rows["8x1856x1920"]
+    return {
+        "name": ng.NAME, "route": "cuda", "source": ng.SOURCE,
+        "replaces": None, "shape": list(NCC_GRAD_SHAPES[0]),
+        "max_abs_err": main["max_abs_err_loss"], "ms": main["ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": None,
+        "shapes": rows,
+        "timing": "ms: the sums and step kernels' launch pair through the C "
+                  "entry back to back (CUDA events); graph_ms: the same "
+                  "replayed from a CUDA graph; step_ms: Descent.step on the "
+                  "host clock (the pair and the bool(more) sync); "
+                  "autograd_step_ms: the plain route's step (loss with its "
+                  "graph, autograd.grad, the stopping test's sync) in turns "
+                  "with ms; plain_ms: the twin (float64 sums)",
     }
 
 
@@ -1120,6 +1224,7 @@ def run_series(device, n_frames: int, size: int, **cfg_kw) -> dict:
     res = repro_torch.register_series(chunks, cfg, device=device)
     wall = time.perf_counter() - t0
     launches = launch_counts().get("warp_ncc", 0)
+    grad_launches = launch_counts().get("ncc_grad", 0)
     shift = res.deformations["shift"]
     if tuple(shift.shape) != (n_frames, 2) or not bool(
         torch.isfinite(shift).all()
@@ -1134,6 +1239,7 @@ def run_series(device, n_frames: int, size: int, **cfg_kw) -> dict:
         "feeds": [[f["n_elems"], f["backend"], f["skipped"], f["refined"]]
                   for f in res.feeds],
         "warp_ncc_launches": launches, "guess_checks": checks,
+        "ncc_grad_launches": grad_launches,
         "skipped": sum(f["skipped"] for f in res.feeds),
         "refined": sum(f["refined"] for f in res.feeds),
         "max_shift_err_px": err,
@@ -1197,6 +1303,7 @@ def run_series_compose(device, n_frames: int, size: int) -> dict:
         res = repro_torch.register_series(frames, cfg, device=device)
         wall = time.perf_counter() - t0
         launches = launch_counts().get("lookback_scan", 0)
+        grad_launches = launch_counts().get("ncc_grad", 0)
     finally:
         service.SeriesSession._compose_suffix = compose_suffix
     shift = res.deformations["shift"]
@@ -1213,6 +1320,7 @@ def run_series_compose(device, n_frames: int, size: int) -> dict:
         "backend": res.backend,
         "feeds": [[f["n_elems"], f["backend"]] for f in res.feeds],
         "lookback_scan_launches": launches,
+        "ncc_grad_launches": grad_launches,
         "composed_vs_f64_chain": chain,
         "max_shift_err_px": float((shift - true["shift"]).abs().max()),
         "timings_s": res.timings, "wall_s": wall,
@@ -3934,7 +4042,9 @@ def main() -> int:
     })
 
     # Each library (csrc/<name>.cu) and the kernels it holds.
-    libraries = {"warp_ncc": ["warp_ncc"], "lookback_scan": ["lookback_scan"],
+    libraries = {"warp_ncc": ["warp_ncc"],
+                 "ncc_grad": ["ncc_grad_sums", "ncc_grad_step"],
+                 "lookback_scan": ["lookback_scan"],
                  "tile_scan": ["tile_local_scan", "tile_apply"],
                  "fused_round": ["fused_round", "fused_plan"],
                  "chunk_scan": ["chunk_local", "chunk_apply"],
@@ -3947,6 +4057,8 @@ def main() -> int:
 
     k = check_warp_ncc(dev, power_w)
     _line("kernel warp_ncc", k)
+    kg = check_ncc_grad(dev, power_w)
+    _line("kernel ncc_grad", kg)
     # The scan kernels' bf16 add and matmul entries, under each line.
     entries = check_scan_entries(dev)
     kl = {**check_lookback_scan(dev), **entries["lookback_scan"]}
@@ -4029,6 +4141,9 @@ def main() -> int:
 
     k["launches"] = series["warp_ncc_launches"]
     k["launches_series_hier"] = hier["warp_ncc_launches"]
+    kg["launches"] = series["ncc_grad_launches"]
+    kg["launches_series_hier"] = hier["ncc_grad_launches"]
+    kg["launches_series_compose"] = compose["ncc_grad_launches"]
     engine_launches = {}
     for call in engine["calls"].values():
         for name, v in call["launches"].items():
@@ -4074,7 +4189,7 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     rows = []
-    for entry in (k, kl, kt_local, kt_apply, kf, kp, kc_local, kc_apply,
+    for entry in (k, kg, kl, kt_local, kt_apply, kf, kp, kc_local, kc_apply,
                   kfa):
         if not entry["launches"] >= 1:
             raise AssertionError(f"{entry['name']} was never launched on "

@@ -58,6 +58,7 @@ class RegResult(NamedTuple):
     iterations: torch.Tensor     # total gradient iterations (cost proxy)
     steps: int = 0               # batched gradient steps run, over all levels
                                  # (the host's count: the slowest lane's)
+    kernel_steps: int = 0        # those of them the ncc_grad kernels ran
 
 
 def _minimize_level(
@@ -65,17 +66,36 @@ def _minimize_level(
     tmpl: torch.Tensor,
     init: Deformation,
     cfg: RegistrationConfig,
-) -> Tuple[Deformation, torch.Tensor, torch.Tensor, int]:
+) -> Tuple[Deformation, torch.Tensor, torch.Tensor, int, int]:
     """Gradient flow on one pyramid level with data-dependent stopping,
     over a batch of pairs: ``ref``/``tmpl`` ``(B, h, w)``, ``init`` with
     ``angle (B,)`` and ``shift (B, 2)``.  Returns the deformations, the
-    final distances, each lane's iterations and the batched steps run.
+    final distances, each lane's iterations, the batched steps run and
+    those of them the kernels ran.
 
     The loop is *per-lane frozen*: it runs while any lane is active, and
     ``active`` masks every update, so each lane follows exactly its solo
     trajectory and counts its own iterations whatever batch it runs in.
     The batch pays for every step its slowest lane takes: ``steps`` times
     ``B`` lane-steps, of which the lanes' iterations are the useful ones.
+
+    The route follows where the frames lie, as ``fused_ncc_distance``'s
+    does: on a CUDA device the ``ncc_grad`` kernels (the loss and its
+    analytic gradient from one pass, the masked update on the card), on
+    the CPU the plain autograd version.
+    """
+    if ref.device.type == "cuda":
+        return _minimize_level_kernel(ref, tmpl, init, cfg)
+    return _minimize_level_plain(ref, tmpl, init, cfg)
+
+
+def _minimize_level_plain(
+    ref: torch.Tensor,
+    tmpl: torch.Tensor,
+    init: Deformation,
+    cfg: RegistrationConfig,
+) -> Tuple[Deformation, torch.Tensor, torch.Tensor, int, int]:
+    """:func:`_minimize_level` through ``torch.autograd``, on any device.
 
     Each step's loss at the new point is computed with its graph kept, and
     the next step differentiates that graph, where the reference evaluates
@@ -123,7 +143,33 @@ def _minimize_level(
                 act = (it < cfg.max_iters) & ((prev - cur).abs() > cfg.tol)
                 more = bool(act.any())
             steps += 1
-    return d, cur, it, steps
+    return d, cur, it, steps, 0
+
+
+def _minimize_level_kernel(
+    ref: torch.Tensor,
+    tmpl: torch.Tensor,
+    init: Deformation,
+    cfg: RegistrationConfig,
+) -> Tuple[Deformation, torch.Tensor, torch.Tensor, int, int]:
+    """:func:`_minimize_level` through the ``ncc_grad`` kernels: one sums
+    pass and fold at ``init``, then one of each a step; the same update,
+    freezing and stopping rule as the plain version, in float32, with the
+    loss and its gradient folded from float64 sums."""
+    from repro_torch.kernels.ncc_grad import Descent
+
+    desc = Descent(
+        ref.contiguous(), tmpl.contiguous(), init["angle"], init["shift"],
+        lr_angle=cfg.lr_angle if cfg.estimate_rotation else 0.0,
+        lr_shift=cfg.lr_shift, tol=cfg.tol, max_iters=cfg.max_iters,
+    )
+    more = desc.start()
+    steps = 0
+    while more:
+        with span("repro.fnA.step"):
+            more = desc.step()
+        steps += 1
+    return desc.deformation, desc.cur, desc.it, steps, steps
 
 
 def _pyramid(img: torch.Tensor, levels: int):
@@ -157,18 +203,19 @@ def register_pair(
     scale = 2.0 ** (cfg.levels - 1)
     d = {"angle": init["angle"], "shift": init["shift"] / scale}
     total_iters = torch.zeros((b,), dtype=torch.int32, device=ref.device)
-    total_steps = 0
+    total_steps = kernel_steps = 0
     dist = torch.zeros((b,), device=ref.device)
     for lvl, (r, t) in enumerate(zip(refs, tmps)):
-        d, dist, iters, steps = _minimize_level(r, t, d, cfg)
+        d, dist, iters, steps, k_steps = _minimize_level(r, t, d, cfg)
         total_iters = total_iters + iters
         total_steps += steps
+        kernel_steps += k_steps
         if lvl != len(refs) - 1:
             d = {"angle": d["angle"], "shift": d["shift"] * 2.0}
     if single:
         return RegResult(tree_index(d, 0), dist[0], total_iters[0],
-                         total_steps)
-    return RegResult(d, dist, total_iters, total_steps)
+                         total_steps, kernel_steps)
+    return RegResult(d, dist, total_iters, total_steps, kernel_steps)
 
 
 # ---------------------------------------------------------------------------
@@ -347,11 +394,12 @@ class RegistrationOperator:
         )
         # This adapter's applications (a session makes one a feed):
         # guess checks that skipped or refined, and the refinements'
-        # gradient steps (one lane: steps are iterations) and
-        # thread-seconds.
+        # gradient steps (one lane: steps are iterations), those of them
+        # the ncc_grad kernels ran, and thread-seconds.
         self.skipped = 0
         self.refined = 0
         self.refine_iters = 0
+        self.refine_kernel_steps = 0
         self.refine_s = 0.0
         # What ``engine.scan(stats=...)`` measured of the scans run with
         # this adapter (``StealStats``/``HierStats``).
@@ -469,6 +517,7 @@ class RegistrationOperator:
             with self._count_lock:
                 self.refined += 1
                 self.refine_iters += res.steps
+                self.refine_kernel_steps += res.kernel_steps
                 self.refine_s += time.perf_counter() - t_refine
             return RegElement(res.deformation, a.i, b.k)
         finally:

@@ -1,6 +1,7 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
-version, all CUDA C++: ``warp_ncc`` (``csrc/warp_ncc.cu``),
-``lookback_scan`` (``csrc/lookback_scan.cu``), ``tile_local_scan`` and
+version, all CUDA C++: ``warp_ncc`` (``csrc/warp_ncc.cu``), function A's
+gradient step ``ncc_grad`` (``csrc/ncc_grad.cu``, a kernel of the port
+alone), ``lookback_scan`` (``csrc/lookback_scan.cu``), ``tile_local_scan`` and
 ``tile_apply`` (``csrc/tile_scan.cu``), ``fused_round``
 (``csrc/fused_round.cu``), and the LM kernels ``chunk_local`` and
 ``chunk_apply`` (``csrc/chunk_scan.cu``) and ``flash_attention``

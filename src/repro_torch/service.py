@@ -90,18 +90,20 @@ from repro_torch.runtime.scheduler import get_default_pool
 from repro_torch.runtime.tracing import span, timed
 
 #: Function A runs a chunk's pairs in sub-batches of at most this many.  At
-#: 1920x1920 f32 one pair's autograd graph holds a few hundred MB, so 8
-#: pairs stay far below the card's 80 GB.
+#: 1920x1920 f32 one pair's autograd graph (the CPU route) holds a few
+#: hundred MB, so 8 pairs stay far below any memory; the card's kernel
+#: route holds no graph, and what width suits it is not measured yet.
 PAIR_SUB_BATCH = 8
 
 
 def _register_pairs(pair_fn, cfg: RegistrationConfig, refs: torch.Tensor,
                     tmps: torch.Tensor):
     """Function A on all pairs, in sub-batches of ``PAIR_SUB_BATCH``:
-    ``(deformations, iterations, steps, lane_steps)``, the first two
-    batched over the pairs; ``steps`` counts the batched gradient steps of
-    every sub-batch and level, ``lane_steps`` each step times its
-    sub-batch's width (the lane-steps paid for)."""
+    ``(deformations, iterations, steps, lane_steps, kernel_steps)``, the
+    first two batched over the pairs; ``steps`` counts the batched
+    gradient steps of every sub-batch and level, ``lane_steps`` each step
+    times its sub-batch's width (the lane-steps paid for),
+    ``kernel_steps`` the steps the ncc_grad kernels ran."""
     n = int(refs.shape[0])
     outs = []
     for lo in range(0, n, PAIR_SUB_BATCH):
@@ -115,7 +117,8 @@ def _register_pairs(pair_fn, cfg: RegistrationConfig, refs: torch.Tensor,
     iters = torch.cat([o.iterations for o in outs], dim=0)
     steps = sum(o.steps for o in outs)
     lane_steps = sum(o.steps * int(o.iterations.shape[0]) for o in outs)
-    return defs, iters, steps, lane_steps
+    kernel_steps = sum(o.kernel_steps for o in outs)
+    return defs, iters, steps, lane_steps, kernel_steps
 
 
 @dataclasses.dataclass(frozen=True)
@@ -321,16 +324,19 @@ class _ChunkSummary:
     skipped: int = 0         # guess checks that skipped refinement
     refined: int = 0         # operator applications that refined
     # Function A on the feed's pairs: its ``preprocess`` seconds, the
-    # lanes' iterations, the batched gradient steps and the lane-steps
-    # they paid for (steps times sub-batch width).
+    # lanes' iterations, the batched gradient steps, the lane-steps
+    # they paid for (steps times sub-batch width) and the steps the
+    # ncc_grad kernels ran.
     fnA_s: float = 0.0
     pair_iters: int = 0
     fnA_steps: int = 0
     fnA_lane_steps: int = 0
+    fnA_kernel_steps: int = 0
     # Operator B (zeros for a composing feed): the refinements' gradient
-    # steps and thread-seconds, and the thread-seconds of all operator
-    # applications.
+    # steps and those of them the kernels ran, their thread-seconds, and
+    # the thread-seconds of all operator applications.
     refine_iters: int = 0
+    refine_kernel_steps: int = 0
     refine_s: float = 0.0
     op_s: float = 0.0
     # The scan's thread-seconds in its pool tasks (phases 1 and 3) and in
@@ -345,7 +351,8 @@ class _ChunkSummary:
 _FEED_KEYS = tuple(f.name for f in dataclasses.fields(_ChunkSummary)
                    if f.name not in ("first_elem", "ops"))
 #: The operator's counters a refining feed records, read by name.
-_OP_COUNTERS = ("skipped", "refined", "refine_iters", "refine_s", "op_s")
+_OP_COUNTERS = ("skipped", "refined", "refine_iters", "refine_kernel_steps",
+                "refine_s", "op_s")
 
 
 #: The reference's ``_ChunkSummary`` fields: a snapshot's ``summaries`` hold
@@ -500,11 +507,12 @@ class SeriesSession:
             tmps = chunk if prev_last is not None else chunk[1:]
             new_elems: List[RegElement] = []
             compile_before = self._compile["compile_s"]
-            pair_iters = steps = lane_steps = 0
+            pair_iters = steps = lane_steps = kernel_steps = 0
             if refs.shape[0]:
                 launch = self._pair_launcher(int(refs.shape[0]),
                                              tuple(chunk.shape[1:]))
-                defs, iters, steps, lane_steps = launch(refs, tmps)
+                defs, iters, steps, lane_steps, kernel_steps = launch(refs,
+                                                                      tmps)
                 self._sync()
                 first = self._store.n - 1 if self._store.n else 0
                 new_elems = [
@@ -529,6 +537,7 @@ class SeriesSession:
                 fed = self._summaries[-1]
                 fed.fnA_s, fed.pair_iters = dt, pair_iters
                 fed.fnA_steps, fed.fnA_lane_steps = steps, lane_steps
+                fed.fnA_kernel_steps = kernel_steps
             # O(1) residency: only frame 0 and the boundary frame can be
             # touched by future feeds.
             with span("repro.feed.evict"):
@@ -539,10 +548,10 @@ class SeriesSession:
         """Function A's batched launcher for ``n_pairs`` pairs of ``hw``
         frames, from the process-wide compile cache.
 
-        A miss builds the CUDA kernels this session's scan will launch (the
-        guess check's ``warp_ncc``; once per process, on-disk builds are
-        reused), so the build lands in the ``compile`` stage and not in
-        the first scan.  The live module-level ``register_pair`` is part
+        A miss builds the CUDA kernels this session will launch (function
+        A's ``ncc_grad``, the guess check's ``warp_ncc``; once per process,
+        on-disk builds are reused), so the build lands in the ``compile``
+        stage and not in the first feed.  The live module-level ``register_pair`` is part
         of the key so a swapped implementation never reuses a stale
         launcher."""
         cfg = self.cfg
@@ -553,6 +562,10 @@ class SeriesSession:
 
         def build():
             with span("repro.compile"):
+                if self.device.type == "cuda":
+                    from repro_torch.kernels import ncc_grad
+
+                    ncc_grad.ensure_built()
                 if needs_ncc:
                     from repro_torch.kernels import warp_ncc
 

@@ -6,11 +6,15 @@ with a reason where there is none.  On a machine with a card::
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 """
 
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import pytest
 import torch
 
 import repro_torch
+from repro_torch.core import registration
 from repro_torch.core.deformation import compose_batched
 from repro_torch.core.engine import get_plan, scan
 from repro_torch.data.images import lattice_image, make_series
@@ -21,6 +25,7 @@ from repro_torch.data.scan_rows import (
 )
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels import lookback_scan as lb
+from repro_torch.kernels import ncc_grad as ng
 from repro_torch.kernels import tile_scan as ts
 from repro_torch.kernels import warp_ncc as wn
 from repro_torch.kernels._tiling import (
@@ -196,6 +201,190 @@ def test_register_series_on_card_goes_through_kernel(cuda):
     assert res.deformations["shift"].device.type == "cuda"
     err = (res.deformations["shift"] - true["shift"]).abs().max()
     assert float(err) < 0.35
+
+
+# ----------------------------------------------------- function A's step
+
+#: The benchmark's angle step at 1856 x 1920 (5e-4 * (96 / 1920)^2).
+LR_ANGLE_1920 = 1.25e-6
+
+
+def _pair_stack(h, w, n, device, seed):
+    """``n`` consecutive frame pairs of ``h`` x ``w``, cut from a series
+    rendered at ``max(h, w)`` px: ``(refs, tmpls)``."""
+    frames, _ = make_series(seed, n + 1, size=max(h, w), noise=0.15,
+                            device=device)
+    f = frames[:, :h, :w].contiguous()
+    return f[:-1].contiguous(), f[1:].contiguous()
+
+
+def _corner_gap(d1, d2, h, w):
+    """The widest distance, in px, between where two batches of
+    deformations move a frame's four corners (float64)."""
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    corners = torch.tensor([[-cy, -cx], [-cy, cx], [cy, -cx], [cy, cx]],
+                           dtype=torch.float64)
+
+    def moved(d):
+        a = d["angle"].double().cpu()[:, None]
+        s = d["shift"].double().cpu()[:, None, :]
+        c, sn = torch.cos(a), torch.sin(a)
+        y = c * corners[:, 0] - sn * corners[:, 1]
+        x = sn * corners[:, 0] + c * corners[:, 1]
+        return torch.stack([y, x], dim=-1) + s
+
+    return float((moved(d1) - moved(d2)).norm(dim=-1).max())
+
+
+@pytest.mark.parametrize("shape", [(1856, 1920), (928, 960), (75, 100)])
+def test_ncc_grad_kernels_match_twin_and_autograd(cuda, shape):
+    """One sums pass and fold against the plain twin (float64 sums) and
+    against autograd of ``ncc_distance`` on the card, with an ordinary
+    lane, a small angle and a lane clamped by a shift of 40% of the
+    frame."""
+    h, w = shape
+    ref, tmpl = _pair_stack(h, w, 3, cuda, seed=3)
+    angle = torch.tensor([0.0, 0.003, -0.05], device=cuda)
+    shift = torch.tensor([[1.5, -2.0], [0.3, 0.8], [-0.45 * h, 0.4 * w]],
+                         device=cuda)
+    reset_launch_counts()
+    loss, grad, sums = ng.ncc_grad_cuda(ref, tmpl, angle, shift)
+    assert launch_counts()["ncc_grad"] == 1
+    want_loss, want_grad = ng.fold_reference(
+        ng.sums_reference(ref, tmpl, angle, shift), h * w)
+    a = angle.clone().requires_grad_(True)
+    s = shift.clone().requires_grad_(True)
+    auto_loss = registration.ncc_distance(ref, tmpl, {"angle": a, "shift": s})
+    ga, gs = torch.autograd.grad(auto_loss.sum(), [a, s])
+    auto_grad = torch.cat([ga[:, None], gs], dim=1)
+    scale = want_grad.abs().amax(dim=0, keepdim=True)
+    assert float((loss - want_loss).abs().max()) <= 1e-6
+    assert bool(((grad - want_grad).abs() <= 1e-5 * scale).all())
+    assert float((loss - auto_loss.detach()).abs().max()) <= 1e-5
+    assert bool(((grad - auto_grad).abs() <= 1e-4 * scale).all())
+    torch.testing.assert_close(ng.fold_reference(sums, h * w)[0], loss,
+                               rtol=0, atol=1e-7)
+
+
+def test_ncc_grad_lane_is_bit_equal_in_any_batch(cuda):
+    """A lane's sums and its whole descent are the same bits in batches of
+    1, 3 and 8 and from one launch to the next: the sums' partition depends
+    on the frame's shape alone, and nothing is summed with atomics."""
+    ref, tmpl = _pair_stack(928, 960, 8, cuda, seed=5)
+    angle = torch.linspace(-0.004, 0.004, 8, device=cuda)
+    shift = torch.stack([torch.linspace(-2.0, 2.0, 8, device=cuda),
+                         torch.linspace(1.5, -1.0, 8, device=cuda)], dim=1)
+
+    def run(lo, b):
+        d = ng.Descent(ref[lo:lo + b], tmpl[lo:lo + b], angle[lo:lo + b],
+                       shift[lo:lo + b], lr_angle=4 * LR_ANGLE_1920,
+                       lr_shift=1.0, tol=1e-7, max_iters=300)
+        more = d.start()
+        first = d.sums.clone()
+        while more:
+            more = d.step()
+        return [first, d.sums, d.grad, d.angle, d.shift, d.cur, d.it]
+
+    whole = run(0, 8)
+    assert len(set(whole[-1].tolist())) > 1     # lanes froze apart
+    for got, want in zip(run(0, 8), whole):
+        assert torch.equal(got, want)
+    for b in (1, 3):
+        for lo in range(0, 8 - b + 1, b):
+            for got, want in zip(run(lo, b), whole):
+                assert torch.equal(got, want[lo:lo + b])
+
+
+def test_register_pair_on_card_matches_the_plain_route(cuda, monkeypatch):
+    """Function A through the kernels against the autograd route run on the
+    same card and frames (the benchmark's frame size and angle step).  The
+    stopping test |prev - cur| > 1e-7 sits at the float32 rounding of the
+    plain route's loss, so the two stop a few iterations apart: within
+    0.005 px at the corners (the plain route reads 0.0014-0.0075 px against
+    the float32 reference of the benchmark) and 10% of the iterations."""
+    ref, tmpl = _pair_stack(1856, 1920, 8, cuda, seed=7)
+    cfg = registration.RegistrationConfig(lr_angle=LR_ANGLE_1920)
+    reset_launch_counts()
+    got = registration.register_pair(ref, tmpl, None, cfg)
+    assert got.kernel_steps == got.steps > 0
+    # A start a level, then one entry call (two kernels) a step.
+    assert launch_counts()["ncc_grad"] == got.steps + cfg.levels
+    monkeypatch.setattr(registration, "_minimize_level",
+                        registration._minimize_level_plain)
+    want = registration.register_pair(ref, tmpl, None, cfg)
+    assert want.kernel_steps == 0
+    assert _corner_gap(got.deformation, want.deformation, 1856, 1920) <= 5e-3
+    total, want_total = int(got.iterations.sum()), int(want.iterations.sum())
+    assert abs(total - want_total) <= 0.1 * want_total
+    assert float((got.distance - want.distance).abs().max()) <= 1e-5
+
+
+def test_register_pair_from_eight_threads_gives_the_serial_answers(cuda):
+    """Eight threads refining at once, as the work-stealing scan's
+    refinements do: each descent owns its state and scratch, so every
+    thread gets the answer it gets alone, bit for bit."""
+    ref, tmpl = _pair_stack(464, 480, 8, cuda, seed=9)
+    cfg = registration.RegistrationConfig(lr_angle=16 * LR_ANGLE_1920)
+    guess = [{"angle": torch.tensor(0.001 * i, device=cuda),
+              "shift": torch.tensor([0.5 * i, -0.25 * i], device=cuda)}
+             for i in range(8)]
+
+    def one(i):
+        return registration.register_pair(ref[i], tmpl[i], guess[i], cfg)
+
+    serial = [one(i) for i in range(8)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        for _ in range(3):
+            with ThreadPoolExecutor(8) as ex:
+                futures = [ex.submit(one, i) for i in range(8)]
+                results = [f.result(timeout=300) for f in futures]
+            for got, want in zip(results, serial):
+                assert torch.equal(got.deformation["angle"],
+                                   want.deformation["angle"])
+                assert torch.equal(got.deformation["shift"],
+                                   want.deformation["shift"])
+                assert torch.equal(got.iterations, want.iterations)
+    finally:
+        sys.setswitchinterval(interval)
+
+
+@pytest.mark.parametrize("refine", [False, True])
+def test_series_feed_on_card_runs_function_a_on_its_kernels(cuda, refine):
+    """A session's feeds launch ``ncc_grad`` for function A (and for every
+    refinement) and count each step as a kernel step."""
+    frames, _ = make_series(11, 17, size=192, noise=0.15, device=cuda)
+    cfg = repro_torch.RegisterSeriesConfig(
+        registration=registration.RegistrationConfig(
+            lr_angle=5e-4 * (96 / 192) ** 2),
+        refine=refine, skip_tol=1e-6 if refine else None)
+    reset_launch_counts()
+    with repro_torch.open_series(cfg) as s:   # the card: device=None
+        s.feed(frames[:9])
+        s.feed(frames[9:])
+        feeds = s.result().feeds
+    assert launch_counts()["ncc_grad"] > 0
+    for f in feeds:
+        assert f["fnA_kernel_steps"] == f["fnA_steps"] > 0
+        assert f["refine_kernel_steps"] == f["refine_iters"]
+    assert (sum(f["refine_iters"] for f in feeds) > 0) == refine
+
+
+def test_ncc_grad_refuses_autograd_on_card(cuda):
+    ref, tmpl = _pair_stack(64, 64, 2, cuda, seed=1)
+    angle = torch.zeros(2, device=cuda)
+    shift = torch.zeros(2, 2, device=cuda)
+    reset_launch_counts()
+    with pytest.raises(NotImplementedError, match="no gradient"):
+        ng.ncc_grad_cuda(ref.requires_grad_(True), tmpl, angle, shift)
+    assert launch_counts().get("ncc_grad", 0) == 0
+    with torch.no_grad():
+        loss, _, _ = ng.ncc_grad_cuda(ref, tmpl, angle, shift)
+    assert loss.grad_fn is None and bool(torch.isfinite(loss).all())
+    assert launch_counts()["ncc_grad"] == 1
+    with pytest.raises(TypeError):
+        ng.ncc_grad_cuda(ref.detach().double(), tmpl.double(), angle, shift)
 
 
 # ----------------------------------------------------------- scan kernels
